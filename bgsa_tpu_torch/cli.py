@@ -1,0 +1,138 @@
+"""``bgsa-torch-align``: the aligner CLI on a torch device.
+
+Counterpart of ``bgsa-align`` (``bgsa_tpu.cli.align_main``) for unit-cost
+Myers scoring, global or ``--semi-global``, on one CUDA device. Result
+files are byte-identical to ``bgsa-align``'s, so ``bgsa-convert`` reads
+them as they are. Flags of paths not ported yet (``-k``, non-unit
+``-M/-I/-G``, ``--shards``, ``--host``, ``-t``, ``-D``) are rejected.
+"""
+
+from __future__ import annotations
+
+import argparse
+import atexit
+import os
+import sys
+import tempfile
+
+from bgsa_tpu.schemes import Mode, Scoring
+
+_NOT_PORTED = {
+    "threshold": ("-k", "the banded filter, ROADMAP queue 1 #6"),
+    "shards": ("--shards", "local multi-GPU, ROADMAP queue 1 #8"),
+    "host": ("--host", "multi-host roles, ROADMAP queue 1 #8"),
+    "devices": ("-t", "heterogeneous co-compute, ROADMAP queue 1 #8"),
+    "dynamic": ("-D", "dynamic balancing, ROADMAP queue 1 #8"),
+}
+
+
+def _as_line_format(path: str, error) -> str:
+    """FASTA/FASTQ inputs convert to the line format in a temp file (as
+    ``bgsa-align`` does); line-format files pass through."""
+    if not os.path.exists(path):
+        error(f"{path}: no such file")
+    with open(path, "rb") as f:
+        first = f.read(1)
+        is_fastq = False
+        if first == b"@":
+            f.readline()
+            f.readline()
+            is_fastq = f.readline()[:1] == b"+"
+            if not is_fastq:
+                error(f"{path}: starts with '@' but is not valid FASTQ "
+                      "(third line of the first record must start with '+')")
+    if first != b">" and not is_fastq:
+        return path
+    from bgsa_tpu.io import fastx
+
+    tmp = tempfile.NamedTemporaryFile(suffix=".txt", delete=False, prefix="bgsa_")
+    tmp.close()
+    atexit.register(os.unlink, tmp.name)
+    if first == b">":
+        fastx.convert_fasta(path, tmp.name)
+    else:
+        fastx.convert_fastq(path, tmp.name)
+    return tmp.name
+
+
+def align_main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="bgsa-torch-align", description=__doc__)
+    p.add_argument("-q", dest="query", required=True, help="query file (fixed-length lines)")
+    p.add_argument("-d", dest="database", required=True, help="database file")
+    p.add_argument("-f", dest="result", default="data/result.txt", help="result file")
+    p.add_argument("-N", dest="threads", type=int, default=0,
+                   help="host packing threads (reference -N; 0 = all cores)")
+    p.add_argument("-M", dest="match", type=int, default=0, help="match score (default 0)")
+    p.add_argument("-I", dest="mismatch", type=int, default=-1, help="mismatch score (default -1)")
+    p.add_argument("-G", dest="gap", type=int, default=-1, help="gap score (default -1)")
+    p.add_argument("--semi-global", action="store_true", help="semi-global mode")
+    p.add_argument("--bucket-size", type=int, default=None, help="database bucket bytes")
+    p.add_argument("--stats-json", default=None, metavar="PATH",
+                   help="also write run statistics as JSON")
+    p.add_argument("--resume", action="store_true",
+                   help="continue an interrupted run (skip completed buckets)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain torch path)")
+    p.add_argument("--quiet", action="store_true")
+    # accepted only to be refused: these paths are not ported yet
+    p.add_argument("-k", dest="threshold", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--shards", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--host", default=None, help=argparse.SUPPRESS)
+    p.add_argument("-t", dest="devices", default=None, help=argparse.SUPPRESS)
+    p.add_argument("-D", dest="dynamic", action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+
+    for dest, (flag, what) in _NOT_PORTED.items():
+        if getattr(args, dest) not in (None, False):
+            print(f"error: {flag} is not ported yet ({what}); use bgsa-align", file=sys.stderr)
+            return 1
+    scoring = Scoring(args.match, args.mismatch, args.gap)
+    if not scoring.is_unit:
+        print(f"error: -M/-I/-G {scoring.match}/{scoring.mismatch}/{scoring.gap}: general "
+              "scoring is not ported yet (BitPAl, ROADMAP queue 1 #7); unit-cost "
+              "(0, c, c) runs; use bgsa-align", file=sys.stderr)
+        return 1
+
+    import torch
+
+    try:
+        device = torch.device(args.device)
+    except RuntimeError as e:
+        p.error(f"--device {args.device}: {e}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("error: no CUDA device is available; pass --device cpu to run the "
+              "plain torch path on the CPU", file=sys.stderr)
+        return 1
+
+    from bgsa_tpu.pipeline import PipelineConfig
+
+    from .pipeline import run_alignment
+
+    out_dir = os.path.dirname(args.result)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    query = _as_line_format(args.query, p.error)
+    database = _as_line_format(args.database, p.error)
+    cfg_kwargs = {"host_threads": args.threads}
+    if args.bucket_size:
+        cfg_kwargs["bucket_size"] = args.bucket_size
+    mode = Mode.SEMI_GLOBAL if args.semi_global else Mode.GLOBAL
+    try:
+        stats = run_alignment(
+            query, database, args.result, scoring, mode, PipelineConfig(**cfg_kwargs),
+            resume=args.resume, device=device,
+        )
+    except (ValueError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if args.stats_json:
+        with open(args.stats_json, "w") as f:
+            f.write(stats.to_json() + "\n")
+    if not args.quiet:
+        print(f"score is {scoring.match}, {scoring.mismatch}, {scoring.gap}")
+        print(stats.report())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(align_main())

@@ -1,0 +1,142 @@
+"""Bucketed alignment pipeline on a torch device: the port's Engine.
+
+``bgsa_tpu.pipeline.run_bucketed`` is jax-free and takes any engine with
+``n_shards``, ``scores``/``scores_packed`` and ``compile_for``, so the
+reader thread, uniform-shape padding, lag-1 drain, the reference-identical
+result/``.info`` writer and resume are reused as they are. This module
+supplies the engine: the host packs each bucket (``bgsa_tpu.pack``), the
+payload is uploaded, unpacked and Eq-packed on the device
+(``bgsa_tpu_torch.pack``), and the Myers kernel scores it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bgsa_tpu import pack as host_pack
+from bgsa_tpu.pipeline import PipelineConfig, _pack_threads, run_bucketed
+from bgsa_tpu.schemes import Algorithm, Mode, NormalizedScheme, Scoring, normalize
+
+from . import pack
+from .ops import build
+from .ops.myers_semiglobal import myers_semiglobal
+
+
+class DeviceScores:
+    """(Q, S) scores on the device, in the shape ``run_bucketed`` drains:
+    indexing stays on the device, ``np.asarray`` synchronizes and copies to
+    the host (``np.asarray`` on a CUDA tensor itself raises)."""
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+
+    def __getitem__(self, index) -> DeviceScores:
+        return DeviceScores(self.tensor[index])
+
+    def __array__(self, dtype=None, copy=None):
+        host = self.tensor.cpu().numpy()
+        return host if dtype is None else host.astype(dtype, copy=False)
+
+
+def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return host
+    # pinned staging lets the copy queue behind the previous bucket's kernel
+    # instead of blocking the host until it finishes
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+class Engine:
+    """Scoring step for one unit-cost (Myers) scheme on one torch device.
+
+    Counterpart of ``bgsa_tpu.pipeline.Engine`` for the Myers schemes, with
+    full 32-bit words in both modes and one device (``n_shards == 1``).
+    """
+
+    n_shards = 1
+    word_bits = 32
+
+    def __init__(self, scheme: NormalizedScheme, config: PipelineConfig = PipelineConfig(),
+                 device="cuda"):
+        if scheme.algorithm is not Algorithm.MYERS:
+            raise NotImplementedError(
+                f"{scheme.algorithm.value} scoring is not ported yet "
+                "(ROADMAP queue 1 #7: BitPAl engine); unit-cost (0, c, c) runs"
+            )
+        if config.local_shards != 1:
+            raise NotImplementedError(
+                "local multi-GPU sharding is not ported yet (ROADMAP queue 1 #8)"
+            )
+        self.scheme = scheme
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {self.device}")
+
+    def compile_for(self, nq: int, q_len: int, rows: int, s_len: int,
+                    transport: str, sidecar: int = 0) -> None:
+        """Build and load the kernel library before the first timed bucket,
+        so the nvcc build is billed to compile_time, not cal_time. One
+        library serves every geometry."""
+        if self.device.type == "cuda":
+            build.load()
+            torch.empty(0, device=self.device)  # create the CUDA context here too
+
+    def scores_packed(self, query_codes: np.ndarray, transport: str, payload, s_len: int):
+        """Score a transport-packed subject batch (``bgsa_tpu.pack.select_transport``)
+        -> DeviceScores of (Q, S) int16."""
+        dev = self.device
+        if isinstance(payload, tuple):
+            payload = tuple(_upload(p, dev) for p in payload)
+        else:
+            payload = _upload(payload, dev)
+        queries = _upload(np.asarray(query_codes, np.uint8), dev)
+        codes = pack.transport_unpack(transport)(payload, s_len)
+        eq = pack.pack_eq(codes, self.word_bits)
+        out = myers_semiglobal(
+            eq, queries, read_len=s_len, factor=self.scheme.factor,
+            is_global=self.scheme.mode is Mode.GLOBAL,
+        )
+        return DeviceScores(out.to(torch.int16))
+
+    def scores(self, query_codes: np.ndarray, subject_codes: np.ndarray):
+        """(Q, m) x (S, n) codes -> DeviceScores of (Q, S) int16."""
+        transport, payload = host_pack.select_transport(
+            subject_codes, threads=_pack_threads(self.config)
+        )
+        return self.scores_packed(query_codes, transport, payload, subject_codes.shape[1])
+
+
+def run_alignment(
+    query_path: str,
+    db_path: str,
+    result_path: str,
+    scoring: Scoring = Scoring(0, -1, -1),
+    mode: Mode = Mode.GLOBAL,
+    config: PipelineConfig = PipelineConfig(),
+    shard: tuple[int, int] | None = None,
+    shard_ratios=None,
+    resume: bool = False,
+    dynamic: bool = False,
+    sync_dir: str | None = None,
+    *,
+    device="cuda",
+):
+    """Full aligner run with the reference's CLI semantics; returns RunStats.
+
+    ``bgsa_tpu.pipeline.run_alignment`` on a torch device, for unit-cost
+    scoring. ``resume=True`` continues an interrupted run. Multi-host roles
+    (``shard``, ``shard_ratios``, ``dynamic``, ``sync_dir``) are not ported
+    yet.
+    """
+    if shard is not None or shard_ratios is not None or dynamic or sync_dir is not None:
+        raise NotImplementedError(
+            "multi-host roles, -R and -D are not ported yet (ROADMAP queue 1 #8)"
+        )
+    engine = Engine(normalize(scoring, mode), config, device)
+    return run_bucketed(
+        engine, query_path, db_path, result_path, config,
+        shard=None, shard_ratios=None, resume=resume, write_dtype=np.int16,
+    )

@@ -1,0 +1,26 @@
+"""The port imports torch and never jax: the GPU machines have no jax at all."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROGRAM = """
+import sys
+import bgsa_tpu_torch, bgsa_tpu_torch.cli, bgsa_tpu_torch.pipeline
+from bgsa_tpu_torch.ops import build
+scores = bgsa_tpu_torch.align("AAAA", ["AAAA", "AACA", "CAAC", "AGGG"], device="cpu")
+assert scores.tolist() == [0, -1, -2, -3], scores
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert build._kernels is None, "a CPU run built the CUDA kernels"
+print("ok")
+"""
+
+
+def test_port_never_imports_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", PROGRAM], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
