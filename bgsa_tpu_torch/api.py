@@ -1,10 +1,13 @@
 """In-memory API on a torch device: align sequences without temporary files.
 
-Counterpart of ``bgsa_tpu.api.align`` for unit-cost scoring::
+Counterpart of ``bgsa_tpu.api.align`` for unit-cost scoring and the banded
+filter::
 
     import bgsa_tpu_torch
     bgsa_tpu_torch.align("AAAA", ["AAAA", "AACA", "CAAC", "AGGG"])
     # -> array([ 0, -1, -2, -3], dtype=int16)
+    bgsa_tpu_torch.align("AAAA", ["AAAA", "AACA", "CAAC", "AGGG"], k=1)
+    # -> array([0, 1, 2, 3], dtype=int8)
 
 The kernel takes any subject count, so subjects are not padded to a lane
 multiple.
@@ -17,6 +20,7 @@ import numpy as np
 from bgsa_tpu.api import encode_sequences
 from bgsa_tpu.schemes import Mode, Scoring, normalize
 
+from .banded_pipeline import BandedEngine
 from .pipeline import Engine, PipelineConfig
 
 
@@ -33,11 +37,11 @@ def align(
     """Score queries against subjects in memory on ``device`` ("cuda" or "cpu").
 
     Args and result as ``bgsa_tpu.align``: (Q, S) int16 scores, or (S,) when
-    ``queries`` is a single string. Unit-cost scoring (0, c, c) only; ``k``
-    (banded filter) and general scoring raise NotImplementedError.
+    ``queries`` is a single string. With ``k`` (banded filter; scoring and
+    mode are ignored) the scores are int8 error counts, 127 = over budget.
+    Unit-cost scoring (0, c, c) only: general scoring raises
+    NotImplementedError.
     """
-    if k is not None:
-        raise NotImplementedError("the banded filter (k=) is not ported yet (ROADMAP queue 1 #6)")
     single = isinstance(queries, (str, bytes)) or (
         isinstance(queries, np.ndarray)
         and queries.ndim == 1
@@ -45,6 +49,10 @@ def align(
     )
     qcodes = encode_sequences(queries, name="queries")
     scodes = encode_sequences(subjects, name="subjects")
-    engine = Engine(normalize(scoring, mode), config or PipelineConfig(), device)
+    config = config or PipelineConfig()
+    if k is not None:
+        engine = BandedEngine(k, config, device)
+    else:
+        engine = Engine(normalize(scoring, mode), config, device)
     out = np.asarray(engine.scores(qcodes, scodes))
     return out[0] if single else out

@@ -1,10 +1,11 @@
 """``bgsa-torch-align``: the aligner CLI on a torch device.
 
 Counterpart of ``bgsa-align`` (``bgsa_tpu.cli.align_main``) for unit-cost
-Myers scoring, global or ``--semi-global``, on one CUDA device. Result
-files are byte-identical to ``bgsa-align``'s, so ``bgsa-convert`` reads
-them as they are. Flags of paths not ported yet (``-k``, non-unit
-``-M/-I/-G``, ``--shards``, ``--host``, ``-t``, ``-D``) are rejected.
+Myers scoring, global or ``--semi-global``, and the banded filter (``-k``),
+on one CUDA device. Result files are byte-identical to ``bgsa-align``'s, so
+``bgsa-convert`` reads them as they are. Flags of paths not ported yet
+(non-unit ``-M/-I/-G``, ``--shards``, ``--host``, ``-t``, ``-D``) are
+rejected.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import tempfile
 from bgsa_tpu.schemes import Mode, Scoring
 
 _NOT_PORTED = {
-    "threshold": ("-k", "the banded filter, ROADMAP queue 1 #6"),
     "shards": ("--shards", "local multi-GPU, ROADMAP queue 1 #8"),
     "host": ("--host", "multi-host roles, ROADMAP queue 1 #8"),
     "devices": ("-t", "heterogeneous co-compute, ROADMAP queue 1 #8"),
@@ -62,9 +62,11 @@ def align_main(argv=None) -> int:
     p.add_argument("-f", dest="result", default="data/result.txt", help="result file")
     p.add_argument("-N", dest="threads", type=int, default=0,
                    help="host packing threads (reference -N; 0 = all cores)")
-    p.add_argument("-M", dest="match", type=int, default=0, help="match score (default 0)")
-    p.add_argument("-I", dest="mismatch", type=int, default=-1, help="mismatch score (default -1)")
-    p.add_argument("-G", dest="gap", type=int, default=-1, help="gap score (default -1)")
+    p.add_argument("-k", dest="threshold", type=int, default=None, help="banded error threshold")
+    p.add_argument("-M", dest="match", type=int, default=None, help="match score (default 0)")
+    p.add_argument("-I", dest="mismatch", type=int, default=None,
+                   help="mismatch score (default -1)")
+    p.add_argument("-G", dest="gap", type=int, default=None, help="gap score (default -1)")
     p.add_argument("--semi-global", action="store_true", help="semi-global mode")
     p.add_argument("--bucket-size", type=int, default=None, help="database bucket bytes")
     p.add_argument("--stats-json", default=None, metavar="PATH",
@@ -75,7 +77,6 @@ def align_main(argv=None) -> int:
                    help="torch device (default cuda; 'cpu' runs the plain torch path)")
     p.add_argument("--quiet", action="store_true")
     # accepted only to be refused: these paths are not ported yet
-    p.add_argument("-k", dest="threshold", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--shards", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--host", default=None, help=argparse.SUPPRESS)
     p.add_argument("-t", dest="devices", default=None, help=argparse.SUPPRESS)
@@ -86,8 +87,28 @@ def align_main(argv=None) -> int:
         if getattr(args, dest) not in (None, False):
             print(f"error: {flag} is not ported yet ({what}); use bgsa-align", file=sys.stderr)
             return 1
-    scoring = Scoring(args.match, args.mismatch, args.gap)
-    if not scoring.is_unit:
+    # explicit scoring flags are told from the defaults, as bgsa-align does
+    scoring_explicit = any(v is not None for v in (args.match, args.mismatch, args.gap))
+    scoring = Scoring(0 if args.match is None else args.match,
+                      -1 if args.mismatch is None else args.mismatch,
+                      -1 if args.gap is None else args.gap)
+    if args.threshold is not None:
+        # the rules of bgsa-align for -k, word for word
+        if scoring_explicit:
+            print("error: -M/-I/-G cannot combine with -k (the banded filter "
+                  "is unit-cost edit distance; drop the scoring flags, or "
+                  "drop -k for a general-scoring run)", file=sys.stderr)
+            return 1
+        if args.semi_global:
+            print("error: --semi-global cannot combine with -k (the banded "
+                  "filter's mode is fixed: errors are minimized over the "
+                  "final subject row, matching the reference's banded "
+                  "kernels)", file=sys.stderr)
+            return 1
+        if args.threshold < 0:
+            print("error: -k must be >= 0", file=sys.stderr)
+            return 1
+    elif not scoring.is_unit:
         print(f"error: -M/-I/-G {scoring.match}/{scoring.mismatch}/{scoring.gap}: general "
               "scoring is not ported yet (BitPAl, ROADMAP queue 1 #7); unit-cost "
               "(0, c, c) runs; use bgsa-align", file=sys.stderr)
@@ -106,6 +127,7 @@ def align_main(argv=None) -> int:
 
     from bgsa_tpu.pipeline import PipelineConfig
 
+    from .banded_pipeline import run_banded
     from .pipeline import run_alignment
 
     out_dir = os.path.dirname(args.result)
@@ -117,11 +139,14 @@ def align_main(argv=None) -> int:
     if args.bucket_size:
         cfg_kwargs["bucket_size"] = args.bucket_size
     mode = Mode.SEMI_GLOBAL if args.semi_global else Mode.GLOBAL
+    config = PipelineConfig(**cfg_kwargs)
     try:
-        stats = run_alignment(
-            query, database, args.result, scoring, mode, PipelineConfig(**cfg_kwargs),
-            resume=args.resume, device=device,
-        )
+        if args.threshold is not None:
+            stats = run_banded(query, database, args.result, args.threshold, config,
+                               resume=args.resume, device=device)
+        else:
+            stats = run_alignment(query, database, args.result, scoring, mode, config,
+                                  resume=args.resume, device=device)
     except (ValueError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

@@ -1,14 +1,17 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``bgsa_tpu_torch/csrc/`` are compiled by ``nvcc`` into a
-shared library with a plain C interface and loaded with ``ctypes``. The
-library lands in ``build/bgsa_tpu_torch/`` at the repository root, named by
-a hash of the sources and flags, so a changed source rebuilds and an
-unchanged one loads the cached library.
+shared library with a plain C interface and loaded with ``ctypes``. Each
+``.cu`` file is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one library. The library lands in
+``build/bgsa_tpu_torch/`` at the repository root, named by a hash of the
+flags and of every file in the sources' directories (headers included), so a
+changed source or header rebuilds and an unchanged tree loads the cached
+library.
 
 Importing this module builds nothing. ``load()`` builds on first use (the
-first kernel launch on a CUDA tensor, or ``Engine.compile_for``), and a
-failed build raises with the nvcc command and its stderr.
+first kernel launch on a CUDA tensor, or ``compile_for`` of an engine), and
+a failed build raises with the nvcc command and its stderr.
 """
 
 from __future__ import annotations
@@ -24,11 +27,10 @@ import time
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "bgsa_tpu_torch")
-SOURCES = ("myers_semiglobal.cu",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("myers_semiglobal.cu", "banded.cu", "banded_packed.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _lock = threading.Lock()
 _kernels = None
@@ -63,34 +65,74 @@ def nvcc_path() -> str:
     return nvcc
 
 
+def source_digest(sources) -> str:
+    """Hash of the flags and of every file in the sources' directories, so a
+    header that a source includes is part of the key."""
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for d in sorted({os.path.dirname(os.path.abspath(s)) for s in sources}):
+        for name in sorted(os.listdir(d)):
+            path = os.path.join(d, name)
+            if os.path.isfile(path):
+                digest.update(name.encode() + b"\0")
+                with open(path, "rb") as f:
+                    digest.update(f.read())
+    return digest.hexdigest()[:16]
+
+
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; raise on the first failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[1] for p in procs]
+    for cmd, proc, err in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n{err}"
+            )
+    return "".join(outs)
+
+
 def compile_library(sources, out_dir: str) -> tuple[str, str, float]:
     """Compile ``sources`` into ``out_dir``; returns (path, nvcc stderr, seconds).
 
-    The file name carries a hash of the sources and flags; an existing file
-    of that name is reused (stderr "", 0 seconds). Raises RuntimeError on a
-    failed build.
+    The file name carries ``source_digest``; an existing file of that name
+    is reused (stderr "", 0 seconds). Raises RuntimeError on a failed build.
     """
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        with open(src, "rb") as f:
-            digest.update(f.read())
-    path = os.path.join(out_dir, f"libbgsa_kernels-{digest.hexdigest()[:16]}.so")
+    path = os.path.join(out_dir, f"libbgsa_kernels-{source_digest(sources)}.so")
     if os.path.exists(path):
         return path, "", 0.0
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources]
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-    return path, proc.stderr, seconds
+    try:
+        log = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", obj, src]
+                        for obj, src in zip(objs, sources)])
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.unlink(f)
+    return path, log, time.perf_counter() - t0
+
+
+def _declare(lib) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        # pointers..., ints..., stream
+        "bgsa_myers_semiglobal": [ptr] * 4 + [i32] * 7 + [ptr],
+        "bgsa_banded_stream": [ptr] * 4 + [i32] * 10 + [ptr],
+        "bgsa_banded_peq": [ptr] * 6 + [i32] * 9 + [ptr],
+        "bgsa_banded_packed": [ptr] * 3 + [i32] * 9 + [ptr],
+        "bgsa_reg_words": [],
+        "bgsa_error_string": [i32],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_char_p if name == "bgsa_error_string" else i32
 
 
 def load() -> Kernels:
@@ -101,12 +143,6 @@ def load() -> Kernels:
             sources = [os.path.join(CSRC_DIR, s) for s in SOURCES]
             path, log, seconds = compile_library(sources, BUILD_DIR)
             lib = ctypes.CDLL(path)
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.bgsa_myers_semiglobal.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
-            lib.bgsa_myers_semiglobal.restype = i32
-            lib.bgsa_reg_words.argtypes = []
-            lib.bgsa_reg_words.restype = i32
-            lib.bgsa_error_string.argtypes = [i32]
-            lib.bgsa_error_string.restype = ctypes.c_char_p
+            _declare(lib)
             _kernels = Kernels(lib, path, log, seconds, lib.bgsa_reg_words())
         return _kernels

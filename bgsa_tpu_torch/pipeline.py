@@ -53,10 +53,13 @@ class Engine:
 
     Counterpart of ``bgsa_tpu.pipeline.Engine`` for the Myers schemes, with
     full 32-bit words in both modes and one device (``n_shards == 1``).
+    Subclasses score other families by overriding ``score_codes`` and
+    ``result_dtype`` (``banded_pipeline.BandedEngine``).
     """
 
     n_shards = 1
     word_bits = 32
+    result_dtype = torch.int16
 
     def __init__(self, scheme: NormalizedScheme, config: PipelineConfig = PipelineConfig(),
                  device="cuda"):
@@ -65,11 +68,14 @@ class Engine:
                 f"{scheme.algorithm.value} scoring is not ported yet "
                 "(ROADMAP queue 1 #7: BitPAl engine); unit-cost (0, c, c) runs"
             )
+        self.scheme = scheme
+        self._set_device(config, device)
+
+    def _set_device(self, config: PipelineConfig, device) -> None:
         if config.local_shards != 1:
             raise NotImplementedError(
                 "local multi-GPU sharding is not ported yet (ROADMAP queue 1 #8)"
             )
-        self.scheme = scheme
         self.config = config
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
@@ -84,9 +90,18 @@ class Engine:
             build.load()
             torch.empty(0, device=self.device)  # create the CUDA context here too
 
+    def score_codes(self, queries: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+        """(Q, m) query codes x (S, n) subject codes, both on the device ->
+        (Q, S) int32 scores."""
+        eq = pack.pack_eq(codes, self.word_bits)
+        return myers_semiglobal(
+            eq, queries, read_len=codes.shape[1], factor=self.scheme.factor,
+            is_global=self.scheme.mode is Mode.GLOBAL,
+        )
+
     def scores_packed(self, query_codes: np.ndarray, transport: str, payload, s_len: int):
         """Score a transport-packed subject batch (``bgsa_tpu.pack.select_transport``)
-        -> DeviceScores of (Q, S) int16."""
+        -> DeviceScores of (Q, S) ``result_dtype``."""
         dev = self.device
         if isinstance(payload, tuple):
             payload = tuple(_upload(p, dev) for p in payload)
@@ -94,15 +109,10 @@ class Engine:
             payload = _upload(payload, dev)
         queries = _upload(np.asarray(query_codes, np.uint8), dev)
         codes = pack.transport_unpack(transport)(payload, s_len)
-        eq = pack.pack_eq(codes, self.word_bits)
-        out = myers_semiglobal(
-            eq, queries, read_len=s_len, factor=self.scheme.factor,
-            is_global=self.scheme.mode is Mode.GLOBAL,
-        )
-        return DeviceScores(out.to(torch.int16))
+        return DeviceScores(self.score_codes(queries, codes).to(self.result_dtype))
 
     def scores(self, query_codes: np.ndarray, subject_codes: np.ndarray):
-        """(Q, m) x (S, n) codes -> DeviceScores of (Q, S) int16."""
+        """(Q, m) x (S, n) codes -> DeviceScores of (Q, S) ``result_dtype``."""
         transport, payload = host_pack.select_transport(
             subject_codes, threads=_pack_threads(self.config)
         )

@@ -19,10 +19,32 @@ Phases; any failure exits non-zero, before the result line:
 5. production size: 20 x 150 bp queries against 1,000,000 x 150 bp subjects
    through ``bgsa_tpu_torch.cli.align_main`` (the main path; its kernel
    launches are counted), with 4,096 sampled scores checked against the
-   numpy oracle, and the same in semi-global mode on a 100,000-subject slice.
+   numpy oracle, and the same in semi-global mode on a 100,000-subject slice;
+6. the four banded kernels against their plain torch versions on the card,
+   bit for bit (tolerance 0), over a geometry grid that hits every route and
+   edge (packed n_sub 2, 3 and 6, the stream kernel's hi word and
+   band_down == 63, the dual kernel with 2k >= 32, the Peq-carry corner, a
+   single-checkpoint query), each on all-garbage, all-near and read-filter
+   mix inputs at ragged subject counts; the device packers against
+   ``bgsa_tpu.pack.pack_banded``;
+7. banded kernel and plain times by CUDA events at the JAX bench's banded
+   line (Q=8, S=65,280, 150 bp, k=8, filter mix) and at one production
+   bucket (Q=20, S=190,080), each of the four kernels on the same data;
+8. the banded filter at production size through ``bgsa_tpu_torch.cli``:
+   ``-k 8`` with 20 x 150 bp queries against 1,000,000 x 150 bp filter-mix
+   subjects (the packed kernel), ``-k 16`` on a 100,000-subject slice (the
+   stream kernel), ``-k 8`` against 148 bp subjects (the dual kernel) and
+   ``-k 40`` with 55 bp queries against 20 bp subjects (the Peq-carry
+   kernel); each run's launches are counted, the run's kernel is held
+   against its plain version on the run's whole input (tolerance 0), every
+   score of the result file against the kernel's, and 4,096 sampled scores
+   against ``bgsa_tpu.banded_ref``.
+
+Kernel inputs are packed by ``BandedEngine.kernel_args``, as the engine
+packs them for its route.
 
 The second-to-last line is a JSON object describing each kernel of the
-path; the last line is ``{"ok": true, "device": {...}}``.
+paths; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -44,6 +66,14 @@ GOLDEN = os.path.join(REPO, "tests", "golden")
 KERNEL_SOURCE = "bgsa_tpu_torch/csrc/myers_semiglobal.cu"
 KERNEL_REPLACES = "bgsa_tpu/ops/myers_semiglobal.py:152"
 N_SAMPLES = 4096
+# banded kernels: name -> (source, the TPU kernel it replaces)
+BANDED_KERNELS = {
+    "banded_stream_packed": ("bgsa_tpu_torch/csrc/banded_packed.cu",
+                             "bgsa_tpu/ops/banded_packed.py:198"),
+    "banded_stream": ("bgsa_tpu_torch/csrc/banded.cu", "bgsa_tpu/ops/banded.py:332"),
+    "banded_stream_dual": ("bgsa_tpu_torch/csrc/banded.cu", "bgsa_tpu/ops/banded.py:332"),
+    "banded": ("bgsa_tpu_torch/csrc/banded.cu", "bgsa_tpu/ops/banded.py:175"),
+}
 
 
 class SmokeFailure(Exception):
@@ -75,7 +105,8 @@ def phase_environment():
 
     t0 = time.perf_counter()
     kernels = build.load()
-    print(f"kernel library built from {KERNEL_SOURCE}: nvcc {kernels.build_seconds:.2f} s, "
+    print(f"kernel library built from bgsa_tpu_torch/csrc/{{{','.join(build.SOURCES)}}}: "
+          f"nvcc {kernels.build_seconds:.2f} s (one process per source, in parallel), "
           f"build+load {time.perf_counter() - t0:.2f} s -> {os.path.relpath(kernels.path, REPO)}")
     for line in kernels.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -230,19 +261,23 @@ def load_make_testdata():
     return mod
 
 
-def sampled_scores(result_path, q_idx, s_idx, n_queries):
-    """Scores of (query, subject) pairs read from a one-device result file
-    with one query bucket (n_queries <= 100)."""
+def result_scores(result_path, n_queries, n_subjects, dtype):
+    """(Q, S) scores of a one-device result file with one query bucket
+    (n_queries <= 100), read back through its ``.info`` bucket layout. The
+    last bucket's pad records (subject counts round up to 128) are cut."""
     from bgsa_tpu.io import result as result_io
 
     info = result_io.read_info(result_path + ".info")
     check(info.device_num == 1 and info.ref_count == n_queries <= 100, "result layout")
-    counts = np.array([c[0] for c in info.device_read_counts], np.int64)
-    starts = np.concatenate([[0], np.cumsum(counts)])
-    offsets = np.concatenate([[0], np.cumsum(n_queries * counts)])
-    data = np.memmap(result_path, dtype=np.int16, mode="r")
-    b = np.searchsorted(starts, s_idx, side="right") - 1
-    return np.asarray(data[offsets[b] + q_idx * counts[b] + (s_idx - starts[b])])
+    data = np.fromfile(result_path, dtype=dtype)
+    out, offset = [], 0
+    for (count, *_) in info.device_read_counts:
+        out.append(data[offset:offset + n_queries * count].reshape(n_queries, count))
+        offset += n_queries * count
+    check(offset == data.size, "result file size")
+    scores = np.concatenate(out, axis=1)
+    check(n_subjects <= scores.shape[1] < n_subjects + 128, "result subject count")
+    return scores[:, :n_subjects]
 
 
 def check_against_oracle(rng, qp, sp, res, mode, n_subjects):
@@ -253,7 +288,7 @@ def check_against_oracle(rng, qp, sp, res, mode, n_subjects):
     queries = seqfile.read_queries(qp)
     q_idx = rng.integers(0, len(queries), N_SAMPLES)
     s_idx = rng.integers(0, n_subjects, N_SAMPLES)
-    got = sampled_scores(res, q_idx, s_idx, len(queries))
+    got = result_scores(res, len(queries), n_subjects, np.int16)[q_idx, s_idx]
     length = queries.shape[1]
     lines = np.memmap(sp, dtype=np.uint8, mode="r").reshape(-1, length + 1)
     want = np.empty(N_SAMPLES, np.int64)
@@ -318,6 +353,244 @@ def phase_production(rng, tmp, smi):
     return launches
 
 
+# -- the banded filter (-k) --------------------------------------------------
+
+BANDED_GRID = [  # (q_len, s_len, k): every route and edge
+    (150, 158, 8),   # packed, n_sub = 2
+    (150, 150, 8),   # packed, n_sub = 3 (the headline geometry)
+    (100, 100, 4),   # packed, n_sub = 6
+    (40, 44, 4),     # packed, a short query with a single checkpoint
+    (150, 150, 16),  # stream, band in the hi word
+    (150, 181, 16),  # stream, band_down == 63
+    (100, 95, 20),   # dual, 2k >= 32 and band_down >= 32
+    (150, 148, 8),   # dual
+    (50, 20, 40),    # Peq-carry
+    (55, 20, 40),    # Peq-carry
+]
+BANDED_KINDS = ("garbage", "near", "mix")
+RAGGED_S = (1, 129, 1000)
+# timed shapes (label, Q, S) at 150 bp, k=8: the JAX bench's banded line and
+# one bucket of the production run (TPU_BUCKET_SIZE // 151, in 128s)
+BANDED_TIMED = (("bench line (bench.py:278-284)", 8, 65280),
+                ("one production bucket", 20, 190080))
+# production runs: subjects of the -k 8 run, of the -k 16 and dual slices,
+# and of the Peq-carry run
+BANDED_SUBJECTS, BANDED_SLICE, PEQ_SUBJECTS = 1_000_000, 100_000, 10_000
+
+
+def substituted(rng, base, count, length, edits):
+    """count copies of base[:length], each with up to ``edits`` random
+    substitutions."""
+    out = np.repeat(base[None, :length], count, axis=0)
+    for row in out:
+        e = rng.integers(0, edits + 1)
+        row[rng.integers(0, length, size=e)] = rng.integers(0, 4, size=e)
+    return out
+
+
+def banded_inputs(rng, Q, m, S, n, k, kind):
+    """(queries, subjects) codes: all-garbage subjects (every lane exits),
+    all-near subjects (queries and subjects within k/4 substitutions of one
+    base sequence: where s_len <= q_len no pair exits), or the read-filter mix
+    (bgsa_tpu.benchutil.filter_mix_dataset, 30 % near)."""
+    from bgsa_tpu.benchutil import filter_mix_dataset
+
+    if kind == "mix":
+        q, s = filter_mix_dataset(rng, Q, S, max(m, n, 6))
+        return q[:, :m].astype(np.int32), s[:, :n].astype(np.int32)
+    if kind == "near":
+        base = random_codes(rng, (max(m, n),))
+        return substituted(rng, base, Q, m, k // 4), substituted(rng, base, S, n, k // 4)
+    return random_codes(rng, (Q, m)), random_codes(rng, (S, n))
+
+
+def banded_launches():
+    from bgsa_tpu_torch.ops import banded as bo
+    from bgsa_tpu_torch.ops import banded_packed as bp
+
+    return {"banded_stream_packed": bp.LAUNCHES, **bo.LAUNCHES}
+
+
+def reset_banded_launches():
+    from bgsa_tpu_torch.ops import banded as bo
+    from bgsa_tpu_torch.ops import banded_packed as bp
+
+    bp.LAUNCHES = 0
+    for name in bo.LAUNCHES:
+        bo.LAUNCHES[name] = 0
+
+
+def banded_compare(name, args, qt, m, n, k):
+    """Kernel vs plain version on the same CUDA tensors -> (max |diff|, kernel out)."""
+    from bgsa_tpu_torch.banded_pipeline import KERNELS
+
+    kernel, plain = KERNELS[name]
+    kw = dict(q_len=m, s_len=n, k=k)
+    before = banded_launches()[name]
+    got = kernel(*args, qt, **kw)
+    torch.cuda.synchronize()
+    check(banded_launches()[name] == before + 1, f"{name} did not launch its kernel")
+    want = plain(*args, qt, **kw)
+    check(got.shape == want.shape and got.dtype == want.dtype == torch.int32,
+          f"{name} output shape/dtype")
+    return int((got.long() - want.long()).abs().max()), got
+
+
+def phase_banded_kernels(rng):
+    from bgsa_tpu import pack as host_pack
+    from bgsa_tpu_torch import pack
+    from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
+
+    print("== phase 6: banded kernels vs plain torch versions on the card (tolerance 0)")
+    max_err = dict.fromkeys(BANDED_KERNELS, 0)
+    for m, n, k in BANDED_GRID:
+        engine = BandedEngine(k, device="cuda")
+        route = engine.route(m, n)
+        also, line = [], []
+        for kind in BANDED_KINDS:
+            for S in RAGGED_S:
+                q, s = banded_inputs(rng, 3, m, S, n, k, kind)
+                codes, qt = torch.from_numpy(s).cuda(), torch.from_numpy(q).cuda()
+                last = kind == "mix" and S == RAGGED_S[-1]
+                if last:
+                    lo, hi, inj = pack.pack_banded(codes, k, m)
+                    for got, want in zip((lo, hi, inj), host_pack.pack_banded(s, k, m)):
+                        check(torch.equal(got.cpu(), pack.eq_from_numpy(want)),
+                              f"device pack_banded != bgsa_tpu.pack.pack_banded at {(m, n, k)}")
+                # the route's kernel on every input; on the mix at S=1000 also
+                # every other kernel that takes the geometry
+                for name in [route] + [x for x in KERNELS if x != route] if last else [route]:
+                    try:
+                        args = engine.kernel_args(name, codes, m)
+                        err, got = banded_compare(name, args, qt, m, n, k)
+                    except ValueError:  # this kernel does not take the geometry
+                        check(name != route, f"the route {name} refused {(m, n, k)}")
+                        continue
+                    check(err == 0, f"{name} kernel != plain at {(m, n, k)} {kind} S={S}")
+                    max_err[name] = max(max_err[name], err)
+                    if name == route and S == RAGGED_S[-1]:
+                        line.append(f"{kind} {float((got == 127).float().mean()):.2f}")
+                    elif name != route:
+                        also.append(name)
+        print(f"  q={m:3d} s={n:3d} k={k:2d}: route {route}, also {', '.join(also) or '-'}; "
+              f"share over budget: {', '.join(line)}; max |diff| 0")
+    print("  device pack_banded equals bgsa_tpu.pack.pack_banded on every geometry")
+    return max_err
+
+
+def phase_banded_bench(rng, smi):
+    from bgsa_tpu.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
+
+    print(f"== phase 7: banded kernel and plain times ({smi})")
+    n = m = 150
+    k = 8
+    engine = BandedEngine(k, device="cuda")
+    results = {}
+    for label, Q, S in BANDED_TIMED:
+        q, s = filter_mix_dataset(rng, Q, S, n)
+        codes = torch.from_numpy(s.astype(np.int32)).cuda()
+        qt = torch.from_numpy(q).cuda()
+        cells = Q * m * S * n
+        print(f"  {label}: Q={Q} m={m} S={S} n={n} k={k}, filter mix, full-matrix cells")
+        for name, (kernel, plain) in KERNELS.items():
+            pack_ms = statistics.median(
+                cuda_times_ms(lambda: engine.kernel_args(name, codes, m), runs=5, warmup=1))
+            args = engine.kernel_args(name, codes, m)
+            err, got = banded_compare(name, args, qt, m, n, k)
+            check(err == 0, f"{name} kernel != plain at the {label}")
+            kw = dict(q_len=m, s_len=n, k=k)
+            kernel_ms = statistics.median(
+                cuda_times_ms(lambda: kernel(*args, qt, **kw), runs=20, warmup=3))
+            plain_ms = statistics.median(
+                cuda_times_ms(lambda: plain(*args, qt, **kw), runs=3, warmup=1))
+            over = float((got == 127).float().mean())
+            print(f"    {name:21s} kernel median {kernel_ms:.4f} ms over 20 runs = "
+                  f"{cells / kernel_ms / 1e6:.1f} GCUPS; plain torch median {plain_ms:.1f} ms "
+                  f"over 3 runs; device packing {pack_ms:.3f} ms; over budget {over:.3f}; "
+                  f"max |diff| {err} ({smi})")
+            if label == BANDED_TIMED[0][0]:
+                results[name] = (err, kernel_ms, plain_ms)
+    return results
+
+
+def write_codes(path, codes):
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    buf = np.empty((codes.shape[0], codes.shape[1] + 1), np.uint8)
+    buf[:, :-1] = lut[codes]
+    buf[:, -1] = ord("\n")
+    with open(path, "wb") as f:
+        f.write(buf.tobytes())
+
+
+def check_against_banded_ref(rng, queries, subjects, scores, k):
+    """4,096 sampled (query, subject) scores against bgsa_tpu.banded_ref."""
+    from bgsa_tpu import banded_ref
+
+    q_idx = rng.integers(0, len(queries), N_SAMPLES)
+    s_idx = rng.integers(0, len(subjects), N_SAMPLES)
+    want = np.array([banded_ref.banded_score(queries[qi], subjects[si], k)
+                     for qi, si in zip(q_idx, s_idx)])
+    bad = int(np.count_nonzero(scores[q_idx, s_idx] != want))
+    check(bad == 0, f"{bad} of {N_SAMPLES} sampled scores differ from banded_ref (-k {k})")
+    print(f"  {N_SAMPLES} sampled (query, subject) scores equal bgsa_tpu.banded_ref "
+          f"({float(np.mean(want == 127)):.3f} over budget)")
+
+
+def phase_banded_production(rng, tmp, smi):
+    from bgsa_tpu.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch import cli
+    from bgsa_tpu_torch.banded_pipeline import BandedEngine
+
+    print(f"== phase 8: banded filter at production size through bgsa_tpu_torch.cli ({smi})")
+    t0 = time.perf_counter()
+    q, s = filter_mix_dataset(np.random.default_rng(1), 20, BANDED_SUBJECTS, 150)
+    runs = {  # the kernel a run takes -> (k, queries, subjects)
+        "banded_stream_packed": (8, q, s),
+        "banded_stream": (16, q, s[:BANDED_SLICE]),
+        "banded_stream_dual": (8, q, s[:BANDED_SLICE, :148]),
+        "banded": (40, q[:, :55], s[:PEQ_SUBJECTS, :20]),
+    }
+    print(f"  generated inputs (filter_mix_dataset, seed 1) in {time.perf_counter() - t0:.2f} s")
+
+    launches, max_err = {}, {}
+    for name, (k, queries, subjects) in runs.items():
+        (Q, m), (S, n) = queries.shape, subjects.shape
+        qpath, spath = os.path.join(tmp, f"bq{m}.txt"), os.path.join(tmp, f"{name}.txt")
+        res, stats_path = os.path.join(tmp, f"{name}.bin"), os.path.join(tmp, "bstats.json")
+        write_codes(qpath, queries)
+        write_codes(spath, subjects)
+        reset_banded_launches()
+        rc = cli.align_main(["-q", qpath, "-d", spath, "-f", res, "-k", str(k),
+                             "--stats-json", stats_path, "--quiet"])
+        counts = banded_launches()
+        check(rc == 0, f"bgsa-torch-align -k {k} exited {rc}")
+        check(counts[name] > 0, f"-k {k} run did not launch the {name} kernel")
+        launches[name] = counts[name]
+        print(f"  -k {k}: {Q} x {m} bp vs {S} x {n} bp: exit 0, kernel launches {counts}")
+        st = print_stats(stats_path)
+        check(st["subject_count"] == S, "subject count")
+        scores = result_scores(res, Q, S, np.int8)
+        os.unlink(res)
+        os.unlink(spath)
+
+        # the run's kernel against its plain version on the run's whole input
+        engine = BandedEngine(k, device="cuda")
+        check(engine.route(m, n) == name, f"(q={m}, s={n}, k={k}) does not route to {name}")
+        codes = torch.from_numpy(subjects.astype(np.int32)).cuda()
+        qt = torch.from_numpy(queries.astype(np.int32)).cuda()
+        err, got = banded_compare(name, engine.kernel_args(name, codes, m), qt, m, n, k)
+        check(err == 0, f"{name} kernel != plain at Q={Q} m={m} S={S} n={n} k={k}")
+        max_err[name] = err
+        check(np.array_equal(scores, got[:, :S].to(torch.int8).cpu().numpy()),
+              f"-k {k} result file != the {name} kernel's scores")
+        print(f"  {name} kernel vs plain torch version on the run's whole input "
+              f"(Q={Q} m={m} S={S} n={n} k={k}): max |diff| {err}; every score in the "
+              "result file equals it")
+        check_against_banded_ref(rng, queries, subjects, scores, k)
+    return launches, max_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -337,11 +610,14 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="bgsa_smoke_") as tmp:
             phase_goldens(tmp)
             launches = phase_production(rng, tmp, smi)
+            banded_err = phase_banded_kernels(rng)
+            banded_times = phase_banded_bench(rng, smi)
+            banded_launched, production_err = phase_banded_production(rng, tmp, smi)
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "myers_semiglobal",
         "route": "cuda",
         "source": KERNEL_SOURCE,
@@ -350,7 +626,20 @@ def main() -> int:
         "max_abs_err": max(max_err, bench_err),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}))
+    }]
+    for name, (source, replaces) in BANDED_KERNELS.items():
+        err, ms, plain = banded_times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": banded_launched[name],
+            "max_abs_err": max(err, banded_err[name], production_err[name]),
+            "ms": ms,
+            "plain_ms": plain,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -50,3 +50,30 @@ def test_library_name_follows_sources(tmp_path, monkeypatch):
     src.write_text("// v2\n")
     changed, _, _ = build.compile_library([str(src)], str(tmp_path / "out"))
     assert changed != first and os.path.exists(changed)
+
+
+def test_library_name_follows_headers(tmp_path, monkeypatch):
+    # a header included by a source is part of the cache key: changing it alone
+    # must not load the stale library
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
+    fake.chmod(fake.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(fake))
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    src, header = csrc / "k.cu", csrc / "common.cuh"
+    src.write_text('#include "common.cuh"\n')
+    header.write_text("// v1\n")
+    first, _, _ = build.compile_library([str(src)], str(tmp_path / "out"))
+    header.write_text("// v2\n")
+    changed, _, _ = build.compile_library([str(src)], str(tmp_path / "out"))
+    assert changed != first and os.path.exists(changed)
+
+
+def test_package_sources_are_all_hashed():
+    # every kernel source and header of the package is in the key, and every
+    # source listed for the build exists
+    names = sorted(os.listdir(build.CSRC_DIR))
+    assert "banded_common.cuh" in names
+    assert all(s in names for s in build.SOURCES)
+    assert set(build.SOURCES) == {n for n in names if n.endswith(".cu")}

@@ -1,4 +1,4 @@
-"""The CUDA kernel on the card. Each test skips where no CUDA device is.
+"""The CUDA kernels on the card. Each test skips where no CUDA device is.
 
 Run on a machine with a GPU: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 Integer scores: kernel and plain version must be equal (tolerance 0).
@@ -8,7 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+from bgsa_tpu.benchutil import filter_mix_dataset
 from bgsa_tpu_torch import pack
+from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
+from bgsa_tpu_torch.ops import banded as bo
+from bgsa_tpu_torch.ops import banded_packed as bp
 from bgsa_tpu_torch.ops import build
 from bgsa_tpu_torch.ops import myers_semiglobal as sg
 from bgsa_tpu_torch.pipeline import Engine, PipelineConfig
@@ -60,3 +64,88 @@ def test_build_failure_raises(cuda, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed") as err:
         build.compile_library([str(src)], str(tmp_path / "out"))
     assert str(src) in str(err.value) and "error" in str(err.value)
+
+
+# (q_len, s_len, k) of every banded route and edge
+BANDED_PACKED = [(150, 158, 8), (150, 150, 8), (100, 100, 4), (40, 44, 4), (3, 5, 4)]
+BANDED_STREAM = [(150, 150, 16), (150, 181, 16), (150, 150, 1), (70, 70, 0)]
+BANDED_DUAL = [(100, 95, 20), (150, 148, 8), (41, 30, 20), (100, 99, 31)]
+BANDED_PEQ = [(50, 20, 40), (55, 20, 40), (150, 150, 8)]
+KINDS = ["garbage", "near", "mix"]
+
+
+def banded_inputs(seed, m, n, k, kind, S=1000, Q=3):
+    """(queries, subjects) codes: random subjects (every lane exits),
+    queries and subjects near one base sequence (within k/4 substitutions
+    each: where s_len <= q_len no pair exits), or the read-filter mix."""
+    rng = np.random.default_rng(seed)
+    if kind == "mix":
+        q, s = filter_mix_dataset(rng, Q, S, max(m, n, 6))
+        return q[:, :m], s[:, :n].astype(np.int32)
+    if kind == "near":
+        base = rng.integers(0, 4, size=max(m, n)).astype(np.int32)
+        q, s = np.repeat(base[None, :m], Q, axis=0), np.repeat(base[None, :n], S, axis=0)
+        for row in (*q, *s):
+            e = rng.integers(0, k // 4 + 1)
+            row[rng.integers(0, row.size, size=e)] = rng.integers(0, 4, size=e)
+        return q, s
+    q = rng.integers(0, 4, size=(Q, m)).astype(np.int32)
+    return q, rng.integers(0, 4, size=(S, n)).astype(np.int32)
+
+
+def launches(name):
+    return bp.LAUNCHES if name == "banded_stream_packed" else bo.LAUNCHES[name]
+
+
+def kernel_vs_plain(cuda, name, m, n, k, kind, S):
+    """Kernel ``name`` against its plain version on the same CUDA tensors,
+    the subjects packed by the engine as its route packs them."""
+    fn, ref = KERNELS[name]
+    q, s = banded_inputs(m + n + k + len(name), m, n, k, kind, S=S)
+    args = BandedEngine(k, PipelineConfig(), cuda).kernel_args(
+        name, torch.from_numpy(s).to(cuda), m)
+    kw = dict(q_len=m, s_len=n, k=k)
+    before = launches(name)
+    got = fn(*args, torch.from_numpy(q).to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert launches(name) == before + 1
+    want = ref(*args, torch.from_numpy(q).to(cuda), **kw)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 129, 1000])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,k", BANDED_PACKED)
+def test_banded_packed_kernel_matches_plain(cuda, m, n, k, kind, S):
+    kernel_vs_plain(cuda, "banded_stream_packed", m, n, k, kind, S)
+
+
+@pytest.mark.parametrize("S", [1, 129, 1000])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,k", BANDED_STREAM + BANDED_PACKED[:2])
+def test_banded_stream_kernel_matches_plain(cuda, m, n, k, kind, S):
+    kernel_vs_plain(cuda, "banded_stream", m, n, k, kind, S)
+
+
+@pytest.mark.parametrize("S", [1, 129, 1000])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,k", BANDED_DUAL)
+def test_banded_dual_kernel_matches_plain(cuda, m, n, k, kind, S):
+    kernel_vs_plain(cuda, "banded_stream_dual", m, n, k, kind, S)
+
+
+@pytest.mark.parametrize("S", [1, 129, 1000])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,k", BANDED_PEQ)
+def test_banded_peq_kernel_matches_plain(cuda, m, n, k, kind, S):
+    kernel_vs_plain(cuda, "banded", m, n, k, kind, S)
+
+
+@pytest.mark.parametrize("m,n,k", [(150, 150, 8), (150, 181, 16), (150, 148, 8), (55, 20, 40)],
+                         ids=["packed", "stream", "dual", "peq-carry"])
+def test_banded_engine_cuda_matches_cpu(cuda, m, n, k):
+    q, s = banded_inputs(5, m, n, k, "mix", S=2000, Q=4)
+    got = np.asarray(BandedEngine(k, PipelineConfig(), cuda).scores(q, s.astype(np.uint8)))
+    want = np.asarray(BandedEngine(k, PipelineConfig(), "cpu").scores(q, s.astype(np.uint8)))
+    assert got.dtype == np.int8
+    np.testing.assert_array_equal(got, want)

@@ -9,9 +9,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROGRAM = """
 import sys
 import bgsa_tpu_torch, bgsa_tpu_torch.cli, bgsa_tpu_torch.pipeline
-from bgsa_tpu_torch.ops import build
+import bgsa_tpu_torch.banded_pipeline
+from bgsa_tpu_torch.ops import banded, banded_packed, build
 scores = bgsa_tpu_torch.align("AAAA", ["AAAA", "AACA", "CAAC", "AGGG"], device="cpu")
 assert scores.tolist() == [0, -1, -2, -3], scores
+scores = bgsa_tpu_torch.align("ACGTACGT", ["ACGTACGT", "ACGTACGA", "TTTTTTTT"], k=2,
+                              device="cpu")
+assert scores.tolist() == [0, 1, 127], scores
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert build._kernels is None, "a CPU run built the CUDA kernels"
 print("ok")

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from bgsa_tpu import oracle
+from bgsa_tpu import banded_pipeline as jax_banded_pipeline
 from bgsa_tpu import pipeline as jax_pipeline
 from bgsa_tpu.io import result as result_io
 from bgsa_tpu.pipeline import PipelineConfig
@@ -106,7 +107,13 @@ def test_cli_semi_global_stats_json(tmp_path):
 def test_cli_rejects_unported_flags(tmp_path, capsys, flags):
     res = str(tmp_path / "r.bin")
     rc = cli.align_main(["-q", SAMPLE[0], "-d", SAMPLE[1], "-f", res, "--device", "cpu",
-                         *flags])
+                         "--quiet", *flags])
+    if flags[0] == "-k":  # the banded filter is ported: it runs, as bgsa-align's does
+        assert rc == 0
+        want = str(tmp_path / "jax.bin")
+        jax_banded_pipeline.run_banded(*SAMPLE, want, 8, PipelineConfig(backend="xla"))
+        assert read(res) == read(want) and read(res + ".info") == read(want + ".info")
+        return
     assert rc == 1
     assert "not ported yet" in capsys.readouterr().err
     assert not os.path.exists(res)
@@ -149,8 +156,9 @@ def test_api_multi_query_matches_oracle(mode):
 
 
 def test_api_rejects_unported_paths():
-    with pytest.raises(NotImplementedError, match="banded"):
-        align("ACGT", ["ACGT"], k=2, device="cpu")
+    # k= is ported: the banded filter answers, as bgsa_tpu.align does
+    got = align("ACGTACGT", ["ACGTACGT", "ACGTACGA", "TTTTTTTT"], k=2, device="cpu")
+    assert got.dtype == np.int8 and got.tolist() == [0, 1, 127]
     with pytest.raises(NotImplementedError, match="bitpal"):
         align("ACGT", ["ACGT"], scoring=Scoring(2, -3, -5), device="cpu")
 
