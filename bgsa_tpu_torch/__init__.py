@@ -6,9 +6,10 @@ against it. The port imports torch and never jax; it reuses ``bgsa_tpu``'s
 jax-free modules (file formats, schemes, host packers, oracle, the bucketed
 driver) rather than copying them.
 
-Ported so far: unit-cost Myers, global and semi-global, and the banded
-filter (``-k``, ``align(k=...)``), through the bucketed file pipeline
-(``bgsa-torch-align``) and ``align()``.
+Ported so far: unit-cost Myers and general integer scoring (BitPAl,
+packed and non-packed, ``-M/-I/-G``, ``align(scoring=...)``), global and
+semi-global, and the banded filter (``-k``, ``align(k=...)``), through the
+bucketed file pipeline (``bgsa-torch-align``) and ``align()``.
 """
 
 from bgsa_tpu.schemes import Mode, Scoring

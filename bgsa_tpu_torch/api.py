@@ -1,11 +1,14 @@
 """In-memory API on a torch device: align sequences without temporary files.
 
-Counterpart of ``bgsa_tpu.api.align`` for unit-cost scoring and the banded
-filter::
+Counterpart of ``bgsa_tpu.api.align``: unit-cost scoring (Myers), general
+integer scoring (BitPAl) and the banded filter::
 
     import bgsa_tpu_torch
+    from bgsa_tpu.schemes import Scoring
     bgsa_tpu_torch.align("AAAA", ["AAAA", "AACA", "CAAC", "AGGG"])
     # -> array([ 0, -1, -2, -3], dtype=int16)
+    bgsa_tpu_torch.align("AAAA", ["AAAA", "AACA", "CAAC", "AGGG"], scoring=Scoring(2, -3, -5))
+    # -> array([ 8,  3, -2, -7], dtype=int16)
     bgsa_tpu_torch.align("AAAA", ["AAAA", "AACA", "CAAC", "AGGG"], k=1)
     # -> array([0, 1, 2, 3], dtype=int8)
 
@@ -37,10 +40,11 @@ def align(
     """Score queries against subjects in memory on ``device`` ("cuda" or "cpu").
 
     Args and result as ``bgsa_tpu.align``: (Q, S) int16 scores, or (S,) when
-    ``queries`` is a single string. With ``k`` (banded filter; scoring and
-    mode are ignored) the scores are int8 error counts, 127 = over budget.
-    Unit-cost scoring (0, c, c) only: general scoring raises
-    NotImplementedError.
+    ``queries`` is a single string. Unit-cost ``scoring`` (0, c, c) runs the
+    Myers kernel, any other the BitPAl kernels (``config.bitpal_packed`` and
+    ``config.bitpal_carry`` as in ``bgsa_tpu``). With ``k`` (banded filter;
+    scoring and mode are ignored) the scores are int8 error counts, 127 =
+    over budget.
     """
     single = isinstance(queries, (str, bytes)) or (
         isinstance(queries, np.ndarray)

@@ -19,7 +19,7 @@ from bgsa_tpu.pipeline import PipelineConfig, run_bucketed
 
 from . import pack
 from .ops import banded as banded_ops
-from .ops import banded_packed
+from .ops import banded_packed, build
 from .pipeline import Engine
 
 
@@ -55,6 +55,9 @@ class BandedEngine(Engine):
                  device="cuda"):
         self.k = threshold
         self._set_device(config, device)
+
+    def load_library(self) -> build.Kernels:
+        return build.load()  # the four banded kernels are in the main library
 
     def route(self, q_len: int, s_len: int) -> str:
         """The kernel that scores this geometry (a key of ``KERNELS``)."""

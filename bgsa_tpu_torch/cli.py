@@ -1,11 +1,12 @@
 """``bgsa-torch-align``: the aligner CLI on a torch device.
 
-Counterpart of ``bgsa-align`` (``bgsa_tpu.cli.align_main``) for unit-cost
-Myers scoring, global or ``--semi-global``, and the banded filter (``-k``),
-on one CUDA device. Result files are byte-identical to ``bgsa-align``'s, so
-``bgsa-convert`` reads them as they are. Flags of paths not ported yet
-(non-unit ``-M/-I/-G``, ``--shards``, ``--host``, ``-t``, ``-D``) are
-rejected.
+Counterpart of ``bgsa-align`` (``bgsa_tpu.cli.align_main``) on one CUDA
+device: unit-cost Myers scoring and general integer scoring (``-M/-I/-G``,
+BitPAl, with ``--packed/--no-packed`` and ``--carry``), global or
+``--semi-global``, and the banded filter (``-k``). Result files are
+byte-identical to ``bgsa-align``'s, so ``bgsa-convert`` reads them as they
+are. Flags of paths not ported yet (``--shards``, ``--host``, ``-t``,
+``-D``) are rejected.
 """
 
 from __future__ import annotations
@@ -68,6 +69,12 @@ def align_main(argv=None) -> int:
                    help="mismatch score (default -1)")
     p.add_argument("-G", dest="gap", type=int, default=None, help="gap score (default -1)")
     p.add_argument("--semi-global", action="store_true", help="semi-global mode")
+    p.add_argument("--packed", action=argparse.BooleanOptionalAction, default=None,
+                   help="packed bit-plane BitPAl representation (same scores; default on)")
+    p.add_argument("--carry", action="store_true",
+                   help="full-32-bit-word BitPAl with compare-carry adds (on either "
+                        "representation; same scores). Without it the layout is "
+                        "picked per route: 31-bit packed, 32-bit non-packed")
     p.add_argument("--bucket-size", type=int, default=None, help="database bucket bytes")
     p.add_argument("--stats-json", default=None, metavar="PATH",
                    help="also write run statistics as JSON")
@@ -108,10 +115,19 @@ def align_main(argv=None) -> int:
         if args.threshold < 0:
             print("error: -k must be >= 0", file=sys.stderr)
             return 1
-    elif not scoring.is_unit:
-        print(f"error: -M/-I/-G {scoring.match}/{scoring.mismatch}/{scoring.gap}: general "
-              "scoring is not ported yet (BitPAl, ROADMAP queue 1 #7); unit-cost "
-              "(0, c, c) runs; use bgsa-align", file=sys.stderr)
+    # the rules of bgsa-align for --packed and --carry, word for word
+    myers_or_banded = args.threshold is not None or scoring.is_unit
+    if args.packed is not None and myers_or_banded:
+        print("error: --packed/--no-packed applies to BitPAl scoring "
+              "schemes; this run selects a Myers/banded kernel (unit-cost "
+              "or -k), which has no packed/non-packed representation choice",
+              file=sys.stderr)
+        return 1
+    if args.carry and myers_or_banded:
+        print("error: --carry applies to BitPAl scoring schemes; "
+              "this run selects a Myers/banded kernel (unit-cost or -k), "
+              "whose full-word formulation is already the TPU default",
+              file=sys.stderr)
         return 1
 
     import torch
@@ -135,7 +151,13 @@ def align_main(argv=None) -> int:
         os.makedirs(out_dir, exist_ok=True)
     query = _as_line_format(args.query, p.error)
     database = _as_line_format(args.database, p.error)
-    cfg_kwargs = {"host_threads": args.threads}
+    cfg_kwargs = {
+        "host_threads": args.threads,
+        "bitpal_packed": True if args.packed is None else args.packed,
+        # store_true, as in bgsa-align: absent means the per-route layout,
+        # not "force 31-bit words"
+        "bitpal_carry": True if args.carry else None,
+    }
     if args.bucket_size:
         cfg_kwargs["bucket_size"] = args.bucket_size
     mode = Mode.SEMI_GLOBAL if args.semi_global else Mode.GLOBAL

@@ -9,13 +9,21 @@ flags and of every file in the sources' directories (headers included), so a
 changed source or header rebuilds and an unchanged tree loads the cached
 library.
 
-Importing this module builds nothing. ``load()`` builds on first use (the
-first kernel launch on a CUDA tensor, or ``compile_for`` of an engine), and
-a failed build raises with the nvcc command and its stderr.
+The BitPAl kernels (``SCHEME_SOURCES``) are built apart, one library per
+kernel and scoring scheme: ``load_scheme`` compiles the source with
+``-DBGSA_M/-DBGSA_I/-DBGSA_G``, so the column network's shape is fixed at
+compile time, into ``lib<kernel>-<digest>-M<M>_I<I>_G<G>.so`` beside the
+main library, cached across runs the same way.
+
+Importing this module builds nothing. ``load()`` and ``load_scheme()``
+build on first use (the first kernel launch on a CUDA tensor, or
+``compile_for`` of an engine), and a failed build raises with the nvcc
+command and its stderr.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -28,12 +36,16 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "bgsa_tpu_torch")
 SOURCES = ("myers_semiglobal.cu", "banded.cu", "banded_packed.cu")
+# built one library per scheme (load_scheme); each exports bgsa_<kernel>
+SCHEME_SOURCES = ("bitpal.cu", "bitpal_packed.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _lock = threading.Lock()
 _kernels = None
+_scheme_kernels: dict = {}  # (kernel, M, I, G) -> Kernels
+_scheme_locks: dict = {}
 
 
 @dataclasses.dataclass
@@ -44,7 +56,7 @@ class Kernels:
     path: str
     log: str  # nvcc's stderr (ptxas register and spill report); "" when cached
     build_seconds: float  # 0.0 when the cached library was loaded
-    reg_words: int  # largest W whose Myers state stays in registers
+    reg_words: int  # largest W whose kernel state stays in registers
 
     def check(self, rc: int, name: str) -> None:
         """Raise if a launch returned a CUDA error."""
@@ -92,13 +104,17 @@ def _run_all(cmds) -> str:
     return "".join(outs)
 
 
-def compile_library(sources, out_dir: str) -> tuple[str, str, float]:
+def compile_library(sources, out_dir: str, *, stem: str = "bgsa_kernels", tag: str = "",
+                    defines=()) -> tuple[str, str, float]:
     """Compile ``sources`` into ``out_dir``; returns (path, nvcc stderr, seconds).
 
-    The file name carries ``source_digest``; an existing file of that name
-    is reused (stderr "", 0 seconds). Raises RuntimeError on a failed build.
+    The file name is ``lib<stem>-<source_digest>[-<tag>].so``, ``tag``
+    naming what the ``defines`` (``-D`` macros) select; an existing file of
+    that name is reused (stderr "", 0 seconds). Raises RuntimeError on a
+    failed build.
     """
-    path = os.path.join(out_dir, f"libbgsa_kernels-{source_digest(sources)}.so")
+    name = f"lib{stem}-{source_digest(sources)}{'-' + tag if tag else ''}.so"
+    path = os.path.join(out_dir, name)
     if os.path.exists(path):
         return path, "", 0.0
     os.makedirs(out_dir, exist_ok=True)
@@ -107,7 +123,8 @@ def compile_library(sources, out_dir: str) -> tuple[str, str, float]:
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     try:
-        log = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", obj, src]
+        macros = [f"-D{d}" for d in defines]
+        log = _run_all([[nvcc, *COMPILE_FLAGS, *macros, "-c", "-o", obj, src]
                         for obj, src in zip(objs, sources)])
         log += _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
         os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
@@ -118,21 +135,25 @@ def compile_library(sources, out_dir: str) -> tuple[str, str, float]:
     return path, log, time.perf_counter() - t0
 
 
-def _declare(lib) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    signatures = {
-        # pointers..., ints..., stream
-        "bgsa_myers_semiglobal": [ptr] * 4 + [i32] * 7 + [ptr],
-        "bgsa_banded_stream": [ptr] * 4 + [i32] * 10 + [ptr],
-        "bgsa_banded_peq": [ptr] * 6 + [i32] * 9 + [ptr],
-        "bgsa_banded_packed": [ptr] * 3 + [i32] * 9 + [ptr],
-        "bgsa_reg_words": [],
-        "bgsa_error_string": [i32],
-    }
-    for name, argtypes in signatures.items():
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# pointers..., ints..., stream
+_SIGNATURES = {
+    "bgsa_myers_semiglobal": [_ptr] * 4 + [_i32] * 7 + [_ptr],
+    "bgsa_banded_stream": [_ptr] * 4 + [_i32] * 10 + [_ptr],
+    "bgsa_banded_peq": [_ptr] * 6 + [_i32] * 9 + [_ptr],
+    "bgsa_banded_packed": [_ptr] * 3 + [_i32] * 9 + [_ptr],
+}
+# every scheme library: (eq, queries, out, scratch, Q, m, W, S, read_len,
+# factor, semi_global, word_bits, stream)
+_SCHEME_SIGNATURE = [_ptr] * 4 + [_i32] * 8 + [_ptr]
+_COMMON = {"bgsa_reg_words": [], "bgsa_error_string": [_i32]}
+
+
+def _declare(lib, signatures) -> None:
+    for name, argtypes in {**signatures, **_COMMON}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_char_p if name == "bgsa_error_string" else i32
+        fn.restype = ctypes.c_char_p if name == "bgsa_error_string" else _i32
 
 
 def load() -> Kernels:
@@ -143,6 +164,41 @@ def load() -> Kernels:
             sources = [os.path.join(CSRC_DIR, s) for s in SOURCES]
             path, log, seconds = compile_library(sources, BUILD_DIR)
             lib = ctypes.CDLL(path)
-            _declare(lib)
+            _declare(lib, _SIGNATURES)
             _kernels = Kernels(lib, path, log, seconds, lib.bgsa_reg_words())
         return _kernels
+
+
+def scheme_tag(match: int, mismatch: int, gap: int) -> str:
+    return f"M{match}_I{mismatch}_G{gap}"
+
+
+def load_scheme(kernel: str, match: int, mismatch: int, gap: int) -> Kernels:
+    """Build (on first use) and load BitPAl kernel ``kernel`` ("bitpal" or
+    "bitpal_packed") for one scheme. Libraries of different schemes build
+    concurrently; one scheme's builds once."""
+    if f"{kernel}.cu" not in SCHEME_SOURCES:
+        raise ValueError(f"no per-scheme kernel {kernel!r}")
+    key = (kernel, match, mismatch, gap)
+    with _lock:
+        lock = _scheme_locks.setdefault(key, threading.Lock())
+    with lock:
+        if key not in _scheme_kernels:
+            path, log, seconds = compile_library(
+                [os.path.join(CSRC_DIR, f"{kernel}.cu")], BUILD_DIR, stem=f"bgsa_{kernel}",
+                tag=scheme_tag(match, mismatch, gap),
+                defines=(f"BGSA_M={match}", f"BGSA_I={mismatch}", f"BGSA_G={gap}"),
+            )
+            lib = ctypes.CDLL(path)
+            _declare(lib, {f"bgsa_{kernel}": _SCHEME_SIGNATURE})
+            _scheme_kernels[key] = Kernels(lib, path, log, seconds, lib.bgsa_reg_words())
+        return _scheme_kernels[key]
+
+
+def load_all(schemes=()) -> tuple[Kernels, list[Kernels]]:
+    """The main library and ``load_scheme(*spec)`` for each (kernel, M, I,
+    G) in ``schemes``, every nvcc started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(schemes) + 1) as pool:
+        main = pool.submit(load)
+        libs = [pool.submit(load_scheme, *spec) for spec in schemes]
+        return main.result(), [f.result() for f in libs]

@@ -40,8 +40,32 @@ Phases; any failure exits non-zero, before the result line:
    score of the result file against the kernel's, and 4,096 sampled scores
    against ``bgsa_tpu.banded_ref``.
 
+9. the two BitPAl kernels (general integer scoring) against their plain
+   torch versions on the card, bit for bit (tolerance 0), over schemes
+   (2,-3,-5), (1,-1,-1), (0,-2,-3), the unpacked-only (5,-1,-2) and the
+   wide (5,-4,-11), subject lengths 1..1100 bp (1100 bp takes the scratch
+   path of every scheme), both word layouts (31 and 32 bits), both modes
+   and ragged subject counts;
+10. BitPAl kernel and plain times by CUDA events at the JAX bench's BitPAl
+    line (Q=40, m=500, S=32768, n=500, (2,-3,-5), global; packed with
+    31-bit words, and the non-packed kernel with 32-bit words on the same
+    data) and at one production bucket (Q=20, S=190,080, 150 bp, both
+    kernels, both modes);
+11. the 500 bp BitPAl golden (2,-3,-5) through ``run_alignment``, packed
+    and non-packed, byte for byte;
+12. general scoring at production size through ``bgsa_tpu_torch.cli``:
+    ``-M 2 -I -3 -G -5`` with phase 5's 20 x 150 bp queries and 1,000,000
+    x 150 bp subjects (the packed kernel), then ``--no-packed``,
+    ``--semi-global`` and the unpacked-only ``-M 5 -I -1 -G -2`` on the
+    100,000-subject slice; each run's launches are counted, the run's
+    kernel is held against its plain version on the run's whole input
+    (tolerance 0), every score of the result file against the kernel's,
+    and 4,096 sampled scores against ``bgsa_tpu.oracle``.
+
 Kernel inputs are packed by ``BandedEngine.kernel_args``, as the engine
-packs them for its route.
+packs them for its route. Every kernel library (the main one and one per
+BitPAl kernel and scheme) is built in phase 1, all nvcc processes started
+together.
 
 The second-to-last line is a JSON object describing each kernel of the
 paths; the last line is ``{"ok": true, "device": {...}}``.
@@ -52,6 +76,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -104,13 +129,29 @@ def phase_environment():
     from bgsa_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    kernels = build.load()
+    kernels, scheme_libs = build.load_all(bitpal_specs())
     print(f"kernel library built from bgsa_tpu_torch/csrc/{{{','.join(build.SOURCES)}}}: "
           f"nvcc {kernels.build_seconds:.2f} s (one process per source, in parallel), "
-          f"build+load {time.perf_counter() - t0:.2f} s -> {os.path.relpath(kernels.path, REPO)}")
+          f"-> {os.path.relpath(kernels.path, REPO)}")
     for line in kernels.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+    print("BitPAl libraries, one per kernel and scheme (built beside it, in parallel):")
+    spilling = []
+    for (name, *scheme), lib in zip(bitpal_specs(), scheme_libs):
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", lib.log)]
+        spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores", lib.log)
+        spilled = sum(int(a) + int(b) for a, b in spills)
+        print(f"  {name:13s} {tuple(scheme)}: nvcc {lib.build_seconds:.2f} s, "
+              f"{len(regs)} kernels, ptxas registers {min(regs, default=0)}-{max(regs, default=0)}, "
+              f"stack+spill bytes {spilled}, state in registers up to W={lib.reg_words}")
+        if spilled:
+            spilling.append(f"{name} {tuple(scheme)}")
+            for line in lib.log.splitlines():
+                if "Compiling entry" in line or "spill" in line or "registers" in line:
+                    print("    ptxas:", line.strip())
+    check(not spilling, f"ptxas reports a stack frame or spills in {', '.join(spilling)}")
+    print(f"all libraries built and loaded in {time.perf_counter() - t0:.2f} s")
     return smi
 
 
@@ -192,7 +233,7 @@ def time_kernel_and_plain(eq, qt, *, read_len, is_global, smi):
     return err, kernel_ms, plain_ms
 
 
-def device_eq(rng, S, n):
+def device_eq(rng, S, n, word_bits=32):
     """Subjects through the main path's device stages (host transport packing,
     device unpack and Eq packing), checked against bgsa_tpu.pack's host versions."""
     from bgsa_tpu import pack as host_pack
@@ -202,8 +243,8 @@ def device_eq(rng, S, n):
     transport, payload = host_pack.select_transport(subjects)
     codes = pack.transport_unpack(transport)(torch.from_numpy(payload).cuda(), n)
     check(torch.equal(codes.cpu(), torch.from_numpy(subjects)), "device transport unpack")
-    eq = pack.pack_eq(codes, 32)
-    check(torch.equal(eq.cpu(), pack.eq_from_numpy(host_pack.pack_eq(subjects, 32))),
+    eq = pack.pack_eq(codes, word_bits)
+    check(torch.equal(eq.cpu(), pack.eq_from_numpy(host_pack.pack_eq(subjects, word_bits))),
           "device pack_eq != bgsa_tpu.pack.pack_eq")
     return eq
 
@@ -350,7 +391,7 @@ def phase_production(rng, tmp, smi):
     print(f"  semi-global on the first {n_semi} subjects: exit 0")
     print_stats(stats_path)
     check_against_oracle(rng, qp, sp_semi, res_semi, Mode.SEMI_GLOBAL, n_semi)
-    return launches
+    return launches, (qp, sp, sp_semi)
 
 
 # -- the banded filter (-k) --------------------------------------------------
@@ -591,6 +632,246 @@ def phase_banded_production(rng, tmp, smi):
     return launches, max_err
 
 
+# -- general integer scoring (BitPAl) ------------------------------------------
+
+BITPAL_KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "bitpal_packed": ("bgsa_tpu_torch/csrc/bitpal_packed.cu", "bgsa_tpu/ops/bitpal_packed.py:347"),
+    "bitpal": ("bgsa_tpu_torch/csrc/bitpal.cu", "bgsa_tpu/ops/bitpal.py:315"),
+}
+# the kernel grid's schemes: the bench scheme, small and zero-match
+# lattices, an unpacked-only scheme and a wide one (28 planes unpacked)
+BITPAL_SCHEMES = [(2, -3, -5), (1, -1, -1), (0, -2, -3), (5, -1, -2), (5, -4, -11)]
+# (n, m, S): 1100 bp is past every scheme's register bound (the scratch path)
+BITPAL_GRID = [(1, 12, 1000), (33, 12, 129), (150, 12, 1000), (500, 6, 129), (1100, 3, 200)]
+# timed shapes (label, Q, m, S, n) for (2,-3,-5): the JAX bench's BitPAl line
+# and one bucket of the production run
+BITPAL_TIMED = (("bench line (bench.py:187, 310-321)", 40, 500, 32768, 500),
+                ("one production bucket", 20, 150, 190080, 150))
+# subjects of the packed production run and of the slice the other runs take
+BITPAL_SUBJECTS, BITPAL_SLICE = 1_000_000, 100_000
+
+
+def bitpal_specs():
+    """(kernel, M, I, G) of every BitPAl library the smoke test builds."""
+    from bgsa_tpu_torch.ops import bitpal as tb
+    from bgsa_tpu_torch.ops import bitpal_packed as tbp
+
+    return [(name, *scheme) for scheme in BITPAL_SCHEMES for name in BITPAL_KERNELS
+            if name == "bitpal" or tbp.packed_supported(tb.BitpalParams(*scheme))]
+
+
+def bitpal_fns(name):
+    """(wrapper, plain version, module holding LAUNCHES) of a BitPAl kernel."""
+    from bgsa_tpu_torch.ops import bitpal as tb
+    from bgsa_tpu_torch.ops import bitpal_packed as tbp
+
+    if name == "bitpal_packed":
+        return tbp.bitpal_packed, tbp.bitpal_packed_ref, tbp
+    return tb.bitpal, tb.bitpal_ref, tb
+
+
+def bitpal_launches():
+    return {name: bitpal_fns(name)[2].LAUNCHES for name in BITPAL_KERNELS}
+
+
+def reset_bitpal_launches():
+    for name in BITPAL_KERNELS:
+        bitpal_fns(name)[2].LAUNCHES = 0
+
+
+def bitpal_compare(name, eq, qt, **kw):
+    """Kernel vs plain version on the same CUDA tensors -> (max |diff|,
+    kernel out, plain ms by CUDA events)."""
+    fn, ref, module = bitpal_fns(name)
+    before = module.LAUNCHES
+    got = fn(eq, qt, **kw)
+    torch.cuda.synchronize()
+    check(module.LAUNCHES == before + 1, f"{name} did not launch its kernel")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ref(eq, qt, **kw)
+    stop.record()
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype == torch.int32,
+          f"{name} output shape/dtype")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    return err, got, start.elapsed_time(stop)
+
+
+def phase_bitpal_kernels(rng):
+    from bgsa_tpu_torch import pack
+    from bgsa_tpu_torch.ops import build
+
+    print("== phase 9: BitPAl kernels vs plain torch versions on the card (tolerance 0)")
+    max_err = dict.fromkeys(BITPAL_KERNELS, 0)
+    specs = bitpal_specs()
+    for scheme in BITPAL_SCHEMES:
+        names = [name for name in BITPAL_KERNELS if (name, *scheme) in specs]
+        for n, m, S in BITPAL_GRID:
+            qt = torch.from_numpy(random_codes(rng, (3, m), n_rate=0.03)).cuda()
+            codes = torch.from_numpy(random_codes(rng, (S, n), n_rate=0.03)).cuda()
+            paths = []
+            for word_bits in (31, 32):
+                eq = pack.pack_eq(codes, word_bits)
+                W = eq.shape[1]
+                for semi, factor in ((False, 1), (True, 2)):
+                    kw = dict(match=scheme[0], mismatch=scheme[1], gap=scheme[2], read_len=n,
+                              factor=factor, semi_global=semi, word_bits=word_bits)
+                    for name in names:
+                        err, _, _ = bitpal_compare(name, eq, qt, **kw)
+                        check(err == 0, f"{name} {scheme} kernel != plain at n={n} S={S} "
+                                        f"word_bits={word_bits} semi={semi}")
+                        max_err[name] = max(max_err[name], err)
+                for name in names:
+                    reg_words = build.load_scheme(name, *scheme).reg_words
+                    paths.append(f"{name}/{word_bits} W={W} "
+                                 f"{'registers' if W <= reg_words else 'scratch'}")
+            print(f"  {scheme} n={n:4d} m={m:2d} S={S:4d}, both modes: {'; '.join(paths)}: "
+                  "max |diff| 0")
+    return max_err
+
+
+def phase_bitpal_bench(rng, smi):
+    print(f"== phase 10: BitPAl kernel and plain times, (2,-3,-5) ({smi})")
+    results = {}
+    routes = (("bitpal_packed", 31), ("bitpal", 32))
+    for label, Q, m, S, n in BITPAL_TIMED:
+        cells = Q * m * S * n
+        seed = int(rng.integers(1 << 30))  # the same subjects in both word layouts
+        eqs = {wb: device_eq(np.random.default_rng(seed), S, n, wb) for wb in (31, 32)}
+        qt = torch.from_numpy(random_codes(rng, (Q, m))).cuda()
+        print(f"  {label}: Q={Q} m={m} S={S} n={n} (device unpack and pack_eq equal "
+              "bgsa_tpu.pack's host versions)")
+        for semi in ((False,) if label == BITPAL_TIMED[0][0] else (False, True)):
+            for name, wb in routes:
+                fn = bitpal_fns(name)[0]
+                kw = dict(match=2, mismatch=-3, gap=-5, read_len=n, semi_global=semi,
+                          word_bits=wb)
+                err, _, plain_ms = bitpal_compare(name, eqs[wb], qt, **kw)
+                check(err == 0, f"{name} kernel != plain at the {label}")
+                kernel_ms = statistics.median(
+                    cuda_times_ms(lambda: fn(eqs[wb], qt, **kw), runs=10, warmup=2))
+                print(f"    {name:13s} {wb}-bit {'semi-global' if semi else 'global'}: kernel "
+                      f"median {kernel_ms:.4f} ms over 10 runs = {cells / kernel_ms / 1e6:.1f} "
+                      f"GCUPS; plain torch {plain_ms:.1f} ms (one run); max |diff| {err} ({smi})")
+                if label == BITPAL_TIMED[0][0]:
+                    results[name] = (err, kernel_ms, plain_ms)
+    return results
+
+
+def phase_bitpal_golden(tmp):
+    from bgsa_tpu.io import result as result_io
+    from bgsa_tpu.pipeline import PipelineConfig
+    from bgsa_tpu.schemes import Scoring
+    from bgsa_tpu_torch.pipeline import run_alignment
+
+    print("== phase 11: the 500 bp BitPAl golden through bgsa_tpu_torch.pipeline.run_alignment")
+    for packed in (True, False):
+        res, conv = os.path.join(tmp, "bitpal_golden.bin"), os.path.join(tmp, "bitpal_golden.txt")
+        reset_bitpal_launches()
+        run_alignment(os.path.join(REPO, "sample-data", "query.txt"),
+                      os.path.join(REPO, "sample-data", "subject.txt"), res,
+                      scoring=Scoring(2, -3, -5), config=PipelineConfig(bitpal_packed=packed),
+                      device="cuda")
+        launches = bitpal_launches()
+        name = "bitpal_packed" if packed else "bitpal"
+        check(launches[name] > 0, f"the golden run did not launch {name}")
+        result_io.convert_result(res, conv)
+        with open(conv, "rb") as f, open(os.path.join(GOLDEN, "sample_bitpal_2_m3_m5.txt"),
+                                         "rb") as g:
+            check(f.read() == g.read(), f"sample_bitpal_2_m3_m5.txt differs ({name})")
+        print(f"  sample_bitpal_2_m3_m5.txt: byte-equal through {name} (launches {launches})")
+
+
+def subject_codes(path, count):
+    """The first ``count`` lines of a line-format subject file as (count, n) codes."""
+    from bgsa_tpu.pack import encode_ascii
+
+    with open(path, "rb") as f:
+        length = f.readline().index(b"\n")
+    lines = np.fromfile(path, dtype=np.uint8, count=count * (length + 1))
+    return encode_ascii(lines.reshape(count, length + 1)[:, :length]).astype(np.int32)
+
+
+def check_bitpal_oracle(rng, queries, subjects, scores, scoring, semi):
+    """4,096 sampled (query, subject) scores against bgsa_tpu.oracle."""
+    from bgsa_tpu import oracle
+
+    q_idx = rng.integers(0, len(queries), N_SAMPLES)
+    s_idx = rng.integers(0, len(subjects), N_SAMPLES)
+    want = np.empty(N_SAMPLES, np.int64)
+    for qi in np.unique(q_idx):
+        sel = np.nonzero(q_idx == qi)[0]
+        if semi:  # BitPAl's semi-global: full query, subject ends free
+            want[sel] = oracle.align_scores_query_in_subject(queries[qi], subjects[s_idx[sel]],
+                                                              scoring)
+        else:
+            want[sel] = oracle.align_scores(queries[qi], subjects[s_idx[sel]], scoring)
+    bad = int(np.count_nonzero(scores[q_idx, s_idx] != want))
+    check(bad == 0, f"{bad} of {N_SAMPLES} sampled scores differ from the oracle")
+    print(f"  {N_SAMPLES} sampled (query, subject) scores equal bgsa_tpu.oracle."
+          f"{'align_scores_query_in_subject' if semi else 'align_scores'}")
+
+
+def phase_bitpal_production(rng, tmp, smi, inputs):
+    from bgsa_tpu.io import seqfile
+    from bgsa_tpu.pipeline import PipelineConfig
+    from bgsa_tpu.schemes import Mode, Scoring, normalize
+    from bgsa_tpu_torch import cli, pack
+    from bgsa_tpu_torch.pipeline import Engine
+
+    qp, sp, sp_slice = inputs
+    print(f"== phase 12: general scoring at production size through bgsa_tpu_torch.cli ({smi})")
+    queries = seqfile.read_queries(qp)
+    runs = [  # (flags, scoring, subject file, subject count)
+        ([], Scoring(2, -3, -5), sp, BITPAL_SUBJECTS),
+        (["--no-packed"], Scoring(2, -3, -5), sp_slice, BITPAL_SLICE),
+        (["--semi-global"], Scoring(2, -3, -5), sp_slice, BITPAL_SLICE),
+        ([], Scoring(5, -1, -2), sp_slice, BITPAL_SLICE),
+    ]
+    launches, max_err = {}, dict.fromkeys(BITPAL_KERNELS, 0)
+    for flags, scoring, spath, S in runs:
+        semi = "--semi-global" in flags
+        scheme = normalize(scoring, Mode.SEMI_GLOBAL if semi else Mode.GLOBAL)
+        engine = Engine(scheme, PipelineConfig(bitpal_packed="--no-packed" not in flags), "cuda")
+        name, word_bits = engine.kernel, engine.word_bits
+        res, stats_path = os.path.join(tmp, "bitpal.bin"), os.path.join(tmp, "bitpal_stats.json")
+        args = ["-M", str(scoring.match), "-I", str(scoring.mismatch), "-G", str(scoring.gap),
+                *flags]
+        reset_bitpal_launches()
+        rc = cli.align_main(["-q", qp, "-d", spath, "-f", res, *args, "--stats-json",
+                             stats_path, "--quiet"])
+        counts = bitpal_launches()
+        check(rc == 0, f"bgsa-torch-align {' '.join(args)} exited {rc}")
+        check(counts[name] > 0, f"{' '.join(args)} did not launch the {name} kernel")
+        launches.setdefault(name, counts[name])  # the first run of each kernel
+        print(f"  {' '.join(args)}: {len(queries)} x {queries.shape[1]} bp vs {S} subjects: "
+              f"exit 0, {name} with {word_bits}-bit words, kernel launches {counts}")
+        st = print_stats(stats_path)
+        check(st["subject_count"] == S, "subject count")
+        scores = result_scores(res, len(queries), S, np.int16)
+        os.unlink(res)
+
+        # the run's kernel against its plain version on the run's whole input
+        subjects = subject_codes(spath, S)
+        eq = pack.pack_eq(torch.from_numpy(subjects).cuda(), word_bits)
+        qt = torch.from_numpy(queries.astype(np.int32)).cuda()
+        err, got, plain_ms = bitpal_compare(
+            name, eq, qt, match=scheme.match, mismatch=scheme.mismatch, gap=scheme.gap,
+            read_len=subjects.shape[1], factor=scheme.factor, semi_global=semi,
+            word_bits=word_bits)
+        check(err == 0, f"{name} kernel != plain on the {' '.join(args)} run's input")
+        max_err[name] = max(max_err[name], err)
+        check(np.array_equal(scores, got.to(torch.int16).cpu().numpy()),
+              f"{' '.join(args)} result file != the {name} kernel's scores")
+        print(f"  {name} kernel vs plain torch version on the run's whole input (Q={len(queries)} "
+              f"S={S} n={subjects.shape[1]}): max |diff| {err} (plain {plain_ms:.0f} ms); every "
+              "score in the result file equals it")
+        check_bitpal_oracle(rng, queries, subjects, scores, scoring, semi)
+        del eq, got
+    return launches, max_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -609,10 +890,15 @@ def main() -> int:
         bench_err, kernel_ms, plain_ms = phase_bench(rng, smi)
         with tempfile.TemporaryDirectory(prefix="bgsa_smoke_") as tmp:
             phase_goldens(tmp)
-            launches = phase_production(rng, tmp, smi)
+            launches, inputs = phase_production(rng, tmp, smi)
             banded_err = phase_banded_kernels(rng)
             banded_times = phase_banded_bench(rng, smi)
             banded_launched, production_err = phase_banded_production(rng, tmp, smi)
+            bitpal_err = phase_bitpal_kernels(rng)
+            bitpal_times = phase_bitpal_bench(rng, smi)
+            phase_bitpal_golden(tmp)
+            bitpal_launched, bitpal_production_err = phase_bitpal_production(
+                rng, tmp, smi, inputs)
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -636,6 +922,18 @@ def main() -> int:
             "replaces": replaces,
             "launches": banded_launched[name],
             "max_abs_err": max(err, banded_err[name], production_err[name]),
+            "ms": ms,
+            "plain_ms": plain,
+        })
+    for name, (source, replaces) in BITPAL_KERNELS.items():
+        err, ms, plain = bitpal_times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": bitpal_launched[name],
+            "max_abs_err": max(err, bitpal_err[name], bitpal_production_err[name]),
             "ms": ms,
             "plain_ms": plain,
         })

@@ -84,7 +84,7 @@ def generic_kernels(tmp):
     lib_path, _, _ = build.compile_library([os.path.join(src, s) for s in build.SOURCES],
                                            os.path.join(tmp, "generic"))
     lib = ctypes.CDLL(lib_path)
-    build._declare(lib)
+    build._declare(lib, build._SIGNATURES)
     return build.Kernels(lib, lib_path, "", 0.0, lib.bgsa_reg_words())
 
 
@@ -120,8 +120,7 @@ def packed_instantiations(tmp, rng):
 
 def cli_runs(tmp):
     from bgsa_tpu.benchutil import filter_mix_dataset
-    from bgsa_tpu_torch import cli
-    from chip_smoke import print_stats, write_codes
+    from chip_smoke import write_codes
 
     print("== 3: -k 8, 20 x 150 bp vs 1,000,000 x 150 bp filter mix through the CLI")
     q, s = filter_mix_dataset(np.random.default_rng(1), 20, 1_000_000, 150)
@@ -129,11 +128,21 @@ def cli_runs(tmp):
     write_codes(qp, q)
     write_codes(sp, s)
     del s
+    profile_cli(tmp, ["-q", qp, "-d", sp, "-k", "8"])
+
+
+def profile_cli(tmp, args):
+    """Three ``bgsa-torch-align`` runs with ``args`` (RunStats of each), then
+    one under ``torch.profiler``: wall time, device time summed over the
+    CUDA kernel and copy events, and the largest of them by name."""
+    from bgsa_tpu_torch import cli
+    from chip_smoke import print_stats
+
     res, stats = os.path.join(tmp, "r.bin"), os.path.join(tmp, "stats.json")
-    argv = ["-q", qp, "-d", sp, "-f", res, "-k", "8", "--stats-json", stats, "--quiet"]
+    argv = [*args, "-f", res, "--stats-json", stats, "--quiet"]
     for i in range(3):
         if cli.align_main(argv) != 0:
-            raise RuntimeError("bgsa-torch-align -k 8 failed")
+            raise RuntimeError(f"bgsa-torch-align {' '.join(args)} failed")
         print(f"  run {i}:")
         print_stats(stats)
     from torch.autograd import DeviceType

@@ -72,8 +72,69 @@ def test_library_name_follows_headers(tmp_path, monkeypatch):
 
 def test_package_sources_are_all_hashed():
     # every kernel source and header of the package is in the key, and every
-    # source listed for the build exists
+    # source is built: into the main library or into one library per scheme
     names = sorted(os.listdir(build.CSRC_DIR))
-    assert "banded_common.cuh" in names
-    assert all(s in names for s in build.SOURCES)
-    assert set(build.SOURCES) == {n for n in names if n.endswith(".cu")}
+    assert {"banded_common.cuh", "bitpal_common.cuh"} <= set(names)
+    assert all(s in names for s in build.SOURCES + build.SCHEME_SOURCES)
+    assert not set(build.SOURCES) & set(build.SCHEME_SOURCES)
+    assert set(build.SOURCES + build.SCHEME_SOURCES) == {n for n in names if n.endswith(".cu")}
+
+
+def recording_nvcc(tmp_path):
+    """A stand-in nvcc that appends its arguments to a log and creates its -o file."""
+    fake, log = tmp_path / "nvcc", tmp_path / "nvcc.log"
+    fake.write_text(f'#!/bin/sh\necho "$@" >> {log}\n'
+                    'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
+    fake.chmod(fake.stat().st_mode | stat.S_IXUSR)
+    return str(fake), log
+
+
+def test_scheme_library_name_carries_the_scheme(tmp_path, monkeypatch):
+    fake, log = recording_nvcc(tmp_path)
+    monkeypatch.setattr(build, "nvcc_path", lambda: fake)
+    (tmp_path / "csrc").mkdir()  # apart from the log: the digest hashes the source's directory
+    src = tmp_path / "csrc" / "bitpal.cu"
+    src.write_text("// v1\n")
+    out = str(tmp_path / "out")
+
+    def compile_scheme(m, i, g):
+        return build.compile_library(
+            [str(src)], out, stem="bgsa_bitpal", tag=build.scheme_tag(m, i, g),
+            defines=(f"BGSA_M={m}", f"BGSA_I={i}", f"BGSA_G={g}"))
+
+    first, _, _ = compile_scheme(2, -3, -5)
+    assert os.path.basename(first).startswith("libbgsa_bitpal-")
+    assert first.endswith("-M2_I-3_G-5.so")
+    assert "-DBGSA_M=2 -DBGSA_I=-3 -DBGSA_G=-5" in log.read_text()
+    other, _, _ = compile_scheme(5, -1, -2)
+    assert other != first and other.endswith("-M5_I-1_G-2.so")
+    builds = log.read_text().count(" -c ")
+    again, stderr, seconds = compile_scheme(2, -3, -5)  # cached: no nvcc runs
+    assert (again, stderr, seconds) == (first, "", 0.0)
+    assert log.read_text().count(" -c ") == builds == 2
+
+
+def test_failed_scheme_build_raises(tmp_path, monkeypatch):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'bitpal.cu(9): error: static assertion failed' >&2\nexit 1\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
+    with pytest.raises(RuntimeError) as err:
+        build.load_scheme("bitpal_packed", 2, -3, -5)
+    msg = str(err.value)
+    assert "-DBGSA_M=2" in msg and "bitpal_packed.cu" in msg and "static assertion" in msg
+    assert ("bitpal_packed", 2, -3, -5) not in build._scheme_kernels
+    with pytest.raises(ValueError, match="no per-scheme kernel"):
+        build.load_scheme("myers_semiglobal", 2, -3, -5)
+
+
+def test_importing_the_port_builds_nothing():
+    import bgsa_tpu_torch.api  # noqa: F401
+    import bgsa_tpu_torch.banded_pipeline  # noqa: F401
+    import bgsa_tpu_torch.cli  # noqa: F401
+    import bgsa_tpu_torch.ops.bitpal  # noqa: F401
+    import bgsa_tpu_torch.ops.bitpal_packed  # noqa: F401
+    import bgsa_tpu_torch.pipeline  # noqa: F401
+
+    assert build._kernels is None and build._scheme_kernels == {}

@@ -13,6 +13,8 @@ from bgsa_tpu_torch import pack
 from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
 from bgsa_tpu_torch.ops import banded as bo
 from bgsa_tpu_torch.ops import banded_packed as bp
+from bgsa_tpu_torch.ops import bitpal as tb
+from bgsa_tpu_torch.ops import bitpal_packed as tbp
 from bgsa_tpu_torch.ops import build
 from bgsa_tpu_torch.ops import myers_semiglobal as sg
 from bgsa_tpu_torch.pipeline import Engine, PipelineConfig
@@ -149,3 +151,98 @@ def test_banded_engine_cuda_matches_cpu(cuda, m, n, k):
     want = np.asarray(BandedEngine(k, PipelineConfig(), "cpu").scores(q, s.astype(np.uint8)))
     assert got.dtype == np.int8
     np.testing.assert_array_equal(got, want)
+
+
+# -- BitPAl ------------------------------------------------------------------
+
+# a scheme of each shape: the bench scheme, small and zero-match lattices,
+# an unpacked-only scheme and a wide one (28 planes unpacked)
+BITPAL_SCHEMES = [(2, -3, -5), (1, -1, -1), (0, -2, -3), (5, -1, -2), (5, -4, -11)]
+
+
+def bitpal_kernels(M, I, G):
+    """(name, wrapper, plain version) of each BitPAl kernel the scheme takes."""
+    out = [("bitpal", tb.bitpal, tb.bitpal_ref)]
+    if tbp.packed_supported(tb.BitpalParams(M, I, G)):
+        out.append(("bitpal_packed", tbp.bitpal_packed, tbp.bitpal_packed_ref))
+    return out
+
+
+@pytest.fixture(scope="module")
+def bitpal_cuda():
+    """A CUDA device, with every scheme library of these tests built (in parallel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    build.load_all([(name, *scheme) for scheme in BITPAL_SCHEMES
+                    for name, _, _ in bitpal_kernels(*scheme)])
+    return torch.device("cuda")
+
+
+def bitpal_vs_plain(dev, M, I, G, n, *, Q=3, m=12, S=300, seed=0):
+    """Every BitPAl kernel of the scheme against its plain version on the same
+    CUDA tensors, in both word layouts and both modes."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(codes(rng, (Q, m))).to(dev)
+    subjects = torch.from_numpy(codes(rng, (S, n))).to(dev)
+    for word_bits in (31, 32):
+        eq = pack.pack_eq(subjects, word_bits)
+        for semi, factor in ((False, 1), (True, 2)):
+            kw = dict(match=M, mismatch=I, gap=G, read_len=n, factor=factor, semi_global=semi,
+                      word_bits=word_bits)
+            for name, fn, ref in bitpal_kernels(M, I, G):
+                module = tbp if name == "bitpal_packed" else tb
+                before = module.LAUNCHES
+                got = fn(eq, q, **kw)
+                torch.cuda.synchronize()
+                assert module.LAUNCHES == before + 1
+                want = ref(eq, q, **kw)
+                assert got.dtype == torch.int32 and torch.equal(got, want), (name, word_bits, semi)
+
+
+@pytest.mark.parametrize("n", [1, 33, 150, 500])
+@pytest.mark.parametrize("M,I,G", BITPAL_SCHEMES)
+def test_bitpal_kernels_match_plain(bitpal_cuda, M, I, G, n):
+    bitpal_vs_plain(bitpal_cuda, M, I, G, n, seed=n)
+
+
+@pytest.mark.parametrize("M,I,G", [(2, -3, -5), (5, -1, -2)])
+def test_bitpal_scratch_path_matches_plain(bitpal_cuda, M, I, G):
+    # 1100 bp: 36 words, past every scheme's register bound (both kernels)
+    kernels = build.load_all([(name, M, I, G) for name, _, _ in bitpal_kernels(M, I, G)])[1]
+    assert all(k.reg_words < 36 for k in kernels)
+    bitpal_vs_plain(bitpal_cuda, M, I, G, 1100, m=4, S=200)
+
+
+@pytest.mark.parametrize("S", [1, 129, 1000])
+def test_bitpal_ragged_subject_counts(bitpal_cuda, S):
+    bitpal_vs_plain(bitpal_cuda, 2, -3, -5, 150, S=S, seed=S)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+@pytest.mark.parametrize("mode", [Mode.GLOBAL, Mode.SEMI_GLOBAL])
+def test_bitpal_engine_cuda_matches_cpu(bitpal_cuda, mode, packed):
+    rng = np.random.default_rng(4)
+    q, s = codes(rng, (4, 90)), codes(rng, (1000, 90))
+    scheme = normalize(Scoring(4, -6, -10), mode)
+    config = PipelineConfig(bitpal_packed=packed)
+    engine = Engine(scheme, config, bitpal_cuda)
+    assert engine.kernel == ("bitpal_packed" if packed else "bitpal")
+    got = np.asarray(engine.scores(q, s))
+    want = np.asarray(Engine(scheme, config, "cpu").scores(q, s))
+    assert got.dtype == np.int16
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bitpal_scheme_library_is_built_once(bitpal_cuda):
+    # a second engine of the same scheme builds nothing; another scheme has
+    # its own library
+    scheme = normalize(Scoring(2, -3, -5))
+    first = Engine(scheme, PipelineConfig(), bitpal_cuda).load_library()
+    again = Engine(scheme, PipelineConfig(), bitpal_cuda).load_library()
+    assert again is first
+    path, log, seconds = build.compile_library(
+        [f"{build.CSRC_DIR}/bitpal_packed.cu"], build.BUILD_DIR, stem="bgsa_bitpal_packed",
+        tag=build.scheme_tag(2, -3, -5), defines=("BGSA_M=2", "BGSA_I=-3", "BGSA_G=-5"))
+    assert (path, log, seconds) == (first.path, "", 0.0)
+    other = Engine(normalize(Scoring(1, -1, -1)), PipelineConfig(), bitpal_cuda).load_library()
+    assert other.path != first.path and other.path.endswith("-M1_I-1_G-1.so")

@@ -10,14 +10,20 @@ PROGRAM = """
 import sys
 import bgsa_tpu_torch, bgsa_tpu_torch.cli, bgsa_tpu_torch.pipeline
 import bgsa_tpu_torch.banded_pipeline
-from bgsa_tpu_torch.ops import banded, banded_packed, build
+from bgsa_tpu_torch.ops import banded, banded_packed, bitpal, bitpal_packed, build
 scores = bgsa_tpu_torch.align("AAAA", ["AAAA", "AACA", "CAAC", "AGGG"], device="cpu")
 assert scores.tolist() == [0, -1, -2, -3], scores
 scores = bgsa_tpu_torch.align("ACGTACGT", ["ACGTACGT", "ACGTACGA", "TTTTTTTT"], k=2,
                               device="cpu")
 assert scores.tolist() == [0, 1, 127], scores
+from bgsa_tpu.schemes import Scoring
+for packed in (True, False):  # the packed and non-packed BitPAl kernels
+    config = bgsa_tpu_torch.pipeline.PipelineConfig(bitpal_packed=packed)
+    scores = bgsa_tpu_torch.align("ACGT", ["ACGT", "ACGA", "TTTT"], scoring=Scoring(2, -3, -5),
+                                  config=config, device="cpu")
+    assert scores.tolist() == [8, 3, -7], scores
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
-assert build._kernels is None, "a CPU run built the CUDA kernels"
+assert build._kernels is None and not build._scheme_kernels, "a CPU run built CUDA kernels"
 print("ok")
 """
 

@@ -114,6 +114,13 @@ def test_cli_rejects_unported_flags(tmp_path, capsys, flags):
         jax_banded_pipeline.run_banded(*SAMPLE, want, 8, PipelineConfig(backend="xla"))
         assert read(res) == read(want) and read(res + ".info") == read(want + ".info")
         return
+    if flags[0] == "-M":  # BitPAl is ported: it runs, as bgsa-align's does
+        assert rc == 0
+        want = str(tmp_path / "jax.bin")
+        jax_pipeline.run_alignment(*SAMPLE, want, scoring=Scoring(2, -3, -5),
+                                   config=PipelineConfig(backend="xla"))
+        assert read(res) == read(want) and read(res + ".info") == read(want + ".info")
+        return
     assert rc == 1
     assert "not ported yet" in capsys.readouterr().err
     assert not os.path.exists(res)
@@ -159,16 +166,20 @@ def test_api_rejects_unported_paths():
     # k= is ported: the banded filter answers, as bgsa_tpu.align does
     got = align("ACGTACGT", ["ACGTACGT", "ACGTACGA", "TTTTTTTT"], k=2, device="cpu")
     assert got.dtype == np.int8 and got.tolist() == [0, 1, 127]
-    with pytest.raises(NotImplementedError, match="bitpal"):
-        align("ACGT", ["ACGT"], scoring=Scoring(2, -3, -5), device="cpu")
+    # general scoring is ported: BitPAl answers, as bgsa_tpu.align does
+    got = align("ACGT", ["ACGT", "ACGA", "TTTT"], scoring=Scoring(2, -3, -5), device="cpu")
+    assert got.dtype == np.int16 and got.tolist() == [8, 3, -7]
 
 
 def test_engine_rejects_unported_configurations():
     myers = normalize(Scoring(0, -1, -1))
     with pytest.raises(NotImplementedError, match="queue 1 #8"):
         port.Engine(myers, PipelineConfig(local_shards=2), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 #7"):
-        port.Engine(normalize(Scoring(2, -3, -5)), PipelineConfig(), "cpu")
+    # BitPAl is ported: the engine takes the packed kernel in 31-bit words
+    bitpal = port.Engine(normalize(Scoring(2, -3, -5)), PipelineConfig(), "cpu")
+    assert (bitpal.kernel, bitpal.word_bits) == ("bitpal_packed", 31)
+    with pytest.raises(ValueError, match="M > I > 2G"):
+        port.Engine(normalize(Scoring(1, -4, -2)), PipelineConfig(), "cpu")
     with pytest.raises(NotImplementedError, match="multi-host"):
         port.run_alignment(*SAMPLE, "unused.bin", shard=(0, 2), device="cpu")
 
