@@ -1,12 +1,14 @@
 """Banded-Myers filter pipeline on a torch device: the port's BandedEngine.
 
 Counterpart of ``bgsa_tpu.banded_pipeline``: the same bucketed driver
-(``bgsa_tpu.pipeline.run_bucketed``, reused as it is) with the banded engine
-and int8 result records (127 = over budget), so result and ``.info`` files
-are byte-identical to ``bgsa_tpu``'s. The host packs each bucket for
-transport, the payload is uploaded, unpacked and packed into banded
-bit-streams on the device (``bgsa_tpu_torch.pack``), and one of the four
-banded kernels scores it, routed by geometry as the JAX engine routes.
+(``pipeline.run_bucketed``) with the banded engine and int8 result records
+(127 = over budget), so result and ``.info`` files are byte-identical to
+``bgsa_tpu``'s. The host packs each bucket for transport, the payload is
+uploaded, unpacked and packed into banded bit-streams on the device
+(``bgsa_tpu_torch.pack``), and one of the four banded kernels scores it,
+routed by geometry as the JAX engine routes. Under local sharding each
+shard is packed and scored on its own device (the packed route pads each
+shard's subjects to its own multiple of n_sub).
 """
 
 from __future__ import annotations
@@ -14,13 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bgsa_tpu.pack import PAD_CODE
-from bgsa_tpu.pipeline import PipelineConfig, run_bucketed
-
 from . import pack
 from .ops import banded as banded_ops
 from .ops import banded_packed, build
-from .pipeline import Engine
+from .pack import PAD_CODE
+from .pipeline import _MULTI_HOST, Engine, PipelineConfig, run_bucketed
 
 
 # route name -> (kernel wrapper, plain torch version). A wrapper launches
@@ -35,9 +35,10 @@ KERNELS = {
 
 
 class BandedEngine(Engine):
-    """Banded verification step (threshold k) on one torch device.
+    """Banded verification step (threshold k) on one or more torch devices.
 
-    Same surface as ``bgsa_tpu_torch.pipeline.Engine``. Routes like
+    Same surface as ``bgsa_tpu_torch.pipeline.Engine`` (``local_shards`` and
+    ``devices`` included). Routes like
     ``bgsa_tpu.banded_pipeline.BandedEngine``'s Pallas path, first match wins:
 
     1. s_len >= q_len and ``packed_subbands >= 2`` (and
@@ -52,9 +53,9 @@ class BandedEngine(Engine):
     result_dtype = torch.int8
 
     def __init__(self, threshold: int, config: PipelineConfig = PipelineConfig(),
-                 device="cuda"):
+                 device="cuda", *, devices=None):
         self.k = threshold
-        self._set_device(config, device)
+        self._set_devices(config, device, devices)
 
     def load_library(self) -> build.Kernels:
         return build.load()  # the four banded kernels are in the main library
@@ -93,7 +94,7 @@ class BandedEngine(Engine):
         raise ValueError(f"no banded kernel {name!r}")
 
     def score_codes(self, queries: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-        """(Q, m) query codes x (S, n) subject codes, both on the device ->
+        """(Q, m) query codes x (S, n) subject codes, both on one device ->
         (Q, S) int32 error counts (127 = over budget)."""
         q_len, (S, s_len) = queries.shape[1], codes.shape
         name = self.route(q_len, s_len)
@@ -115,19 +116,18 @@ def run_banded(
     sync_dir: str | None = None,
     *,
     device="cuda",
+    devices=None,
 ):
     """Banded filter run with the reference's CLI semantics; returns RunStats.
 
-    ``bgsa_tpu.banded_pipeline.run_banded`` on a torch device.
-    ``resume=True`` continues an interrupted run. Multi-host roles
-    (``shard``, ``shard_ratios``, ``dynamic``, ``sync_dir``) are not ported
-    yet.
+    ``bgsa_tpu.banded_pipeline.run_banded`` on torch devices
+    (``config.local_shards``, or the ``devices`` given). ``resume=True``
+    continues an interrupted run. Multi-host roles (``shard``,
+    ``shard_ratios``, ``dynamic``, ``sync_dir``) are not ported yet.
     """
     if shard is not None or shard_ratios is not None or dynamic or sync_dir is not None:
-        raise NotImplementedError(
-            "multi-host roles, -R and -D are not ported yet (ROADMAP queue 1 #8)"
-        )
-    engine = BandedEngine(threshold, config, device)
+        raise NotImplementedError(_MULTI_HOST)
+    engine = BandedEngine(threshold, config, device, devices=devices)
     return run_bucketed(
         engine, query_path, db_path, result_path, config,
         shard=None, shard_ratios=None, resume=resume, write_dtype=np.int8,

@@ -1,12 +1,12 @@
 """``bgsa-torch-align``: the aligner CLI on a torch device.
 
-Counterpart of ``bgsa-align`` (``bgsa_tpu.cli.align_main``) on one CUDA
-device: unit-cost Myers scoring and general integer scoring (``-M/-I/-G``,
+Counterpart of ``bgsa-align`` (``bgsa_tpu.cli.align_main``) on CUDA
+devices: unit-cost Myers scoring and general integer scoring (``-M/-I/-G``,
 BitPAl, with ``--packed/--no-packed`` and ``--carry``), global or
-``--semi-global``, and the banded filter (``-k``). Result files are
-byte-identical to ``bgsa-align``'s, so ``bgsa-convert`` reads them as they
-are. Flags of paths not ported yet (``--shards``, ``--host``, ``-t``,
-``-D``) are rejected.
+``--semi-global``, and the banded filter (``-k``), on one device or split
+over local devices (``--shards``). Result files are byte-identical to
+``bgsa-align``'s, so ``bgsa-convert`` reads them as they are. Flags of paths
+not ported yet (``--host``, ``-t``, ``-D``) are rejected.
 """
 
 from __future__ import annotations
@@ -17,10 +17,9 @@ import os
 import sys
 import tempfile
 
-from bgsa_tpu.schemes import Mode, Scoring
+from .schemes import Mode, Scoring
 
 _NOT_PORTED = {
-    "shards": ("--shards", "local multi-GPU, ROADMAP queue 1 #8"),
     "host": ("--host", "multi-host roles, ROADMAP queue 1 #8"),
     "devices": ("-t", "heterogeneous co-compute, ROADMAP queue 1 #8"),
     "dynamic": ("-D", "dynamic balancing, ROADMAP queue 1 #8"),
@@ -44,7 +43,7 @@ def _as_line_format(path: str, error) -> str:
                       "(third line of the first record must start with '+')")
     if first != b">" and not is_fastq:
         return path
-    from bgsa_tpu.io import fastx
+    from .io import fastx
 
     tmp = tempfile.NamedTemporaryFile(suffix=".txt", delete=False, prefix="bgsa_")
     tmp.close()
@@ -69,6 +68,8 @@ def align_main(argv=None) -> int:
                    help="mismatch score (default -1)")
     p.add_argument("-G", dest="gap", type=int, default=None, help="gap score (default -1)")
     p.add_argument("--semi-global", action="store_true", help="semi-global mode")
+    p.add_argument("--shards", type=int, default=1,
+                   help="local device shards (0 = all local devices)")
     p.add_argument("--packed", action=argparse.BooleanOptionalAction, default=None,
                    help="packed bit-plane BitPAl representation (same scores; default on)")
     p.add_argument("--carry", action="store_true",
@@ -84,7 +85,6 @@ def align_main(argv=None) -> int:
                    help="torch device (default cuda; 'cpu' runs the plain torch path)")
     p.add_argument("--quiet", action="store_true")
     # accepted only to be refused: these paths are not ported yet
-    p.add_argument("--shards", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--host", default=None, help=argparse.SUPPRESS)
     p.add_argument("-t", dest="devices", default=None, help=argparse.SUPPRESS)
     p.add_argument("-D", dest="dynamic", action="store_true", help=argparse.SUPPRESS)
@@ -141,10 +141,8 @@ def align_main(argv=None) -> int:
               "plain torch path on the CPU", file=sys.stderr)
         return 1
 
-    from bgsa_tpu.pipeline import PipelineConfig
-
     from .banded_pipeline import run_banded
-    from .pipeline import run_alignment
+    from .pipeline import PipelineConfig, run_alignment
 
     out_dir = os.path.dirname(args.result)
     if out_dir:
@@ -153,6 +151,7 @@ def align_main(argv=None) -> int:
     database = _as_line_format(args.database, p.error)
     cfg_kwargs = {
         "host_threads": args.threads,
+        "local_shards": args.shards,
         "bitpal_packed": True if args.packed is None else args.packed,
         # store_true, as in bgsa-align: absent means the per-route layout,
         # not "force 31-bit words"

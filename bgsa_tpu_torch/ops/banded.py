@@ -28,8 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bgsa_tpu.banded_ref import MAX_ERROR, checkpoint_columns
-from bgsa_tpu.pack import CHAR_NUM
+from ..banded_ref import MAX_ERROR, checkpoint_columns
+from ..pack import CHAR_NUM
 
 WORD_BITS = 32
 MASK32 = 0xFFFFFFFF
@@ -125,9 +125,11 @@ def _epilogue(vp, vn, err, dead, h):
     return torch.where(dead, MAX_ERROR, mn).to(torch.int32)
 
 
-def _scan(queries, S, window_at, *, q_len, s_len, k):
+def _scan(queries, S, window_at, *, q_len, s_len, k, live=None):
     """Run the band over the columns for (Q, S) pairs: window_at(c, t) gives
-    column t's Eq window (Q, S) int64 for the query characters c (Q,)."""
+    column t's Eq window (Q, S) int64 for the query characters c (Q,).
+    ``live``, a list, receives the count of pairs not yet over budget before
+    each column (the work the reference's checkpoints leave to do)."""
     h, _, max_err = geometry(q_len, s_len, k)
     chk = chk_array(q_len, s_len, k)
     q = queries.long()
@@ -135,6 +137,8 @@ def _scan(queries, S, window_at, *, q_len, s_len, k):
     err = torch.full_like(vp, k)
     dead = torch.zeros_like(vp, dtype=torch.bool)
     for t in range(q_len):
+        if live is not None:
+            live.append(int(dead.numel() - dead.sum()))
         vp, vn, d0 = _band_update(window_at(q[:, t], t), vp, vn)
         if t >= k:
             err = err + 1 - (d0 & 1)
@@ -143,13 +147,15 @@ def _scan(queries, S, window_at, *, q_len, s_len, k):
     return _epilogue(vp, vn, err, dead, h)
 
 
-def banded_stream_ref(stream, queries, *, q_len: int, s_len: int, k: int):
-    """Plain torch version. stream (5, W, S) int32, queries (Q, m) -> (Q, S) int32."""
+def banded_stream_ref(stream, queries, *, q_len: int, s_len: int, k: int, live=None):
+    """Plain torch version. stream (5, W, S) int32, queries (Q, m) -> (Q, S)
+    int32. ``live``: see ``_scan``."""
     _, band_down, _ = geometry(q_len, s_len, k)
     st = _padded_stream(stream, q_len)
     mask = const64((1 << (band_down + 1)) - 1)
     return _scan(queries.to(stream.device), stream.shape[-1],
-                 lambda c, t: _window(st, c, t) & mask, q_len=q_len, s_len=s_len, k=k)
+                 lambda c, t: _window(st, c, t) & mask, q_len=q_len, s_len=s_len, k=k,
+                 live=live)
 
 
 def banded_stream_dual_ref(streams, queries, *, q_len: int, s_len: int, k: int):

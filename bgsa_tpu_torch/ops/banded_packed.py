@@ -25,8 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from bgsa_tpu.banded_ref import MAX_ERROR
-from bgsa_tpu.pack import CHAR_NUM
+from ..banded_ref import MAX_ERROR
+from ..pack import CHAR_NUM
 
 from .banded import (MASK32, WORD_BITS, _check_queries, _device_of, const64, geometry,
                      last_checkpoint, launch, shr)

@@ -30,7 +30,7 @@ import dataclasses
 
 import torch
 
-from bgsa_tpu.pack import CHAR_NUM, word_count
+from ..pack import CHAR_NUM, word_count
 
 WORD_BITS = 31
 INT32_MIN = -(1 << 31)

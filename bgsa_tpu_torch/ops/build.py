@@ -35,7 +35,8 @@ import time
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "bgsa_tpu_torch")
-SOURCES = ("myers_semiglobal.cu", "banded.cu", "banded_packed.cu")
+SOURCES = ("myers_semiglobal.cu", "myers_pallas.cu", "banded.cu", "banded_packed.cu",
+           "int_peak.cu")
 # built one library per scheme (load_scheme); each exports bgsa_<kernel>
 SCHEME_SOURCES = ("bitpal.cu", "bitpal_packed.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -142,6 +143,10 @@ _SIGNATURES = {
     "bgsa_banded_stream": [_ptr] * 4 + [_i32] * 10 + [_ptr],
     "bgsa_banded_peq": [_ptr] * 6 + [_i32] * 9 + [_ptr],
     "bgsa_banded_packed": [_ptr] * 3 + [_i32] * 9 + [_ptr],
+    "bgsa_myers_global": [_ptr] * 4 + [_i32] * 6 + [_ptr],
+    "bgsa_myers_global_reg_words": [],
+    "bgsa_int_peak": [_ptr] * 2 + [_i32] * 3 + [_ptr],
+    "bgsa_int_peak_supports": [_i32],
 }
 # every scheme library: (eq, queries, out, scratch, Q, m, W, S, read_len,
 # factor, semi_global, word_bits, stream)

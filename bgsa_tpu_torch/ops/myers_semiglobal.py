@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from bgsa_tpu.pack import CHAR_NUM, word_count
+from ..pack import CHAR_NUM, word_count
 
 WORD_BITS = 32
 

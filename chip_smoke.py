@@ -26,7 +26,7 @@ Phases; any failure exits non-zero, before the result line:
    band_down == 63, the dual kernel with 2k >= 32, the Peq-carry corner, a
    single-checkpoint query), each on all-garbage, all-near and read-filter
    mix inputs at ragged subject counts; the device packers against
-   ``bgsa_tpu.pack.pack_banded``;
+   the host ``pack.pack_banded_host``;
 7. banded kernel and plain times by CUDA events at the JAX bench's banded
    line (Q=8, S=65,280, 150 bp, k=8, filter mix) and at one production
    bucket (Q=20, S=190,080), each of the four kernels on the same data;
@@ -38,7 +38,7 @@ Phases; any failure exits non-zero, before the result line:
    kernel); each run's launches are counted, the run's kernel is held
    against its plain version on the run's whole input (tolerance 0), every
    score of the result file against the kernel's, and 4,096 sampled scores
-   against ``bgsa_tpu.banded_ref``.
+   against ``banded_ref``.
 
 9. the two BitPAl kernels (general integer scoring) against their plain
    torch versions on the card, bit for bit (tolerance 0), over schemes
@@ -60,19 +60,47 @@ Phases; any failure exits non-zero, before the result line:
     100,000-subject slice; each run's launches are counted, the run's
     kernel is held against its plain version on the run's whole input
     (tolerance 0), every score of the result file against the kernel's,
-    and 4,096 sampled scores against ``bgsa_tpu.oracle``.
+    and 4,096 sampled scores against ``oracle``.
+
+13. the 31-bit reference-layout Myers kernel against its plain version
+    and against the full-word kernel's global scores on the same subjects
+    (tolerance 0), n = 1..1500 bp across every word boundary near 31, 62
+    and 93 and the register/scratch switch (992/993 bp), ragged subject
+    counts, factor -1 and +1, N codes;
+14. both Myers kernels and their plain versions timed by CUDA events on the
+    same subjects at the bench geometry and at one production bucket;
+15. the device mesh and ``--shards`` on one card: ``myers_global_sharded``
+    over a (2, 2) mesh of ``cuda:0`` at the production bucket, merge both
+    ways (its launches counted), every engine and route on two shards of
+    ``cuda:0`` (2-bit and 2bit+N payloads) against one device,
+    ``bgsa-torch-align --shards 0`` byte-equal to the unsharded run, and
+    ``--shards`` past the visible devices refused with ``bgsa-align``'s text;
+16. the int32 issue peak: its rate at 8, 16 and 32 chains and at twice the
+    iterations, each chain count's kernel against its plain version at 35
+    iterations (both of the kernel's loops) and the fastest run's output
+    against its plain version on the same inputs (timed), and each pipe's
+    rate (cuobjdump: the SASS per chain step) held to 105 % of SMs x 64 x
+    ``clocks.max.sm``.
 
 Kernel inputs are packed by ``BandedEngine.kernel_args``, as the engine
 packs them for its route. Every kernel library (the main one and one per
 BitPAl kernel and scheme) is built in phase 1, all nvcc processes started
-together.
+together. The script imports ``bgsa_tpu_torch``, torch, numpy and the
+standard library, and loads ``scripts/make_testdata.py`` by path; it fails
+if jax or any ``bgsa_tpu`` module was loaded.
 
 The second-to-last line is a JSON object describing each kernel of the
-paths; the last line is ``{"ok": true, "device": {...}}``.
+paths, with its bound: the kernel's own instructions per column (its SASS,
+``roofline.column_instructions``) for the columns the timed inputs need, at
+the slowest pipe's published rate at ``clocks.max.sm``, or the bytes over
+3.35 TB/s, whichever is larger. A bound above 105 % of the kernel's measured
+time fails the run: a floor cannot be slower than the kernel. The last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -103,6 +131,27 @@ BANDED_KERNELS = {
 
 class SmokeFailure(Exception):
     pass
+
+
+@dataclasses.dataclass
+class Work:
+    """What a timed kernel run had to do, for its bound: the library and the
+    shape that pick its SASS instance (``roofline.SASS_SPECS``), the
+    thread-columns the inputs need, the bytes it must move, the JAX source's
+    operation count, and the trips of a word loop nested in its column loop."""
+
+    library: str
+    shape: dict
+    columns: float
+    nbytes: int
+    jax_ops: float
+    inner_trips: int = 0
+
+
+def main_library() -> str:
+    from bgsa_tpu_torch.ops import build
+
+    return build.load().path
 
 
 def check(cond: bool, what: str) -> None:
@@ -235,8 +284,8 @@ def time_kernel_and_plain(eq, qt, *, read_len, is_global, smi):
 
 def device_eq(rng, S, n, word_bits=32):
     """Subjects through the main path's device stages (host transport packing,
-    device unpack and Eq packing), checked against bgsa_tpu.pack's host versions."""
-    from bgsa_tpu import pack as host_pack
+    device unpack and Eq packing), checked against the host packers (pack_eq_host)."""
+    from bgsa_tpu_torch import pack as host_pack
     from bgsa_tpu_torch import pack
 
     subjects = random_codes(rng, (S, n))
@@ -244,35 +293,39 @@ def device_eq(rng, S, n, word_bits=32):
     codes = pack.transport_unpack(transport)(torch.from_numpy(payload).cuda(), n)
     check(torch.equal(codes.cpu(), torch.from_numpy(subjects)), "device transport unpack")
     eq = pack.pack_eq(codes, word_bits)
-    check(torch.equal(eq.cpu(), pack.eq_from_numpy(host_pack.pack_eq(subjects, word_bits))),
-          "device pack_eq != bgsa_tpu.pack.pack_eq")
+    check(torch.equal(eq.cpu(), pack.eq_from_numpy(host_pack.pack_eq_host(subjects, word_bits))),
+          "device pack_eq != pack_eq_host")
     return eq
 
 
 def phase_bench(rng, smi):
-    from bgsa_tpu.pipeline import TPU_BUCKET_SIZE
+    from bgsa_tpu_torch import roofline
+    from bgsa_tpu_torch.pipeline import BUCKET_SIZE
 
     print(f"== phase 3: kernel and plain times ({smi})")
     Q, m, S, n = 40, 500, 32768, 500  # the JAX bench's Myers line
     eq = device_eq(rng, S, n)
     qt = torch.from_numpy(random_codes(rng, (Q, m))).cuda()
-    print("  bench geometry (device unpack and pack_eq equal bgsa_tpu.pack's host versions):")
+    print("  bench geometry (device unpack and pack_eq equal the host packers):")
     bench = time_kernel_and_plain(eq, qt, read_len=n, is_global=True, smi=smi)
+    work = Work(main_library(), {"W": eq.shape[1]}, Q * m * S,
+                roofline.io_bytes(eq, qt) + 4 * Q * S,
+                roofline.word_kernel_ops("myers_semiglobal", Q, m, S, n))
 
     # one full bucket of the production run: 150 bp lines, default bucket size
     n = m = 150
-    S = TPU_BUCKET_SIZE // (n + 1) // 128 * 128
+    S = BUCKET_SIZE // (n + 1) // 128 * 128
     eq = device_eq(rng, S, n)
     qt = torch.from_numpy(random_codes(rng, (20, m))).cuda()
     print("  the production run's bucket shape:")
     errs = [time_kernel_and_plain(eq, qt, read_len=n, is_global=g, smi=smi)[0]
             for g in (True, False)]
-    return max(bench[0], *errs), bench[1], bench[2]
+    return max(bench[0], *errs), bench[1], bench[2], work
 
 
 def phase_goldens(tmp):
-    from bgsa_tpu.io import result as result_io
-    from bgsa_tpu.pipeline import PipelineConfig
+    from bgsa_tpu_torch.io import result as result_io
+    from bgsa_tpu_torch.pipeline import PipelineConfig
     from bgsa_tpu_torch.pipeline import run_alignment
 
     print("== phase 4: golden files through bgsa_tpu_torch.pipeline.run_alignment")
@@ -306,7 +359,7 @@ def result_scores(result_path, n_queries, n_subjects, dtype):
     """(Q, S) scores of a one-device result file with one query bucket
     (n_queries <= 100), read back through its ``.info`` bucket layout. The
     last bucket's pad records (subject counts round up to 128) are cut."""
-    from bgsa_tpu.io import result as result_io
+    from bgsa_tpu_torch.io import result as result_io
 
     info = result_io.read_info(result_path + ".info")
     check(info.device_num == 1 and info.ref_count == n_queries <= 100, "result layout")
@@ -322,9 +375,9 @@ def result_scores(result_path, n_queries, n_subjects, dtype):
 
 
 def check_against_oracle(rng, qp, sp, res, mode, n_subjects):
-    from bgsa_tpu import oracle
-    from bgsa_tpu.io import seqfile
-    from bgsa_tpu.pack import encode_ascii
+    from bgsa_tpu_torch import oracle
+    from bgsa_tpu_torch.io import seqfile
+    from bgsa_tpu_torch.pack import encode_ascii
 
     queries = seqfile.read_queries(qp)
     q_idx = rng.integers(0, len(queries), N_SAMPLES)
@@ -339,7 +392,7 @@ def check_against_oracle(rng, qp, sp, res, mode, n_subjects):
         want[sel] = -oracle.edit_distances(queries[qi], subjects, mode)
     bad = int(np.count_nonzero(got != want))
     check(bad == 0, f"{bad} of {N_SAMPLES} sampled scores differ from the oracle ({mode.value})")
-    print(f"  {N_SAMPLES} sampled (query, subject) scores equal bgsa_tpu.oracle ({mode.value})")
+    print(f"  {N_SAMPLES} sampled (query, subject) scores equal oracle ({mode.value})")
 
 
 def print_stats(stats_path):
@@ -354,7 +407,7 @@ def print_stats(stats_path):
 
 
 def phase_production(rng, tmp, smi):
-    from bgsa_tpu.schemes import Mode
+    from bgsa_tpu_torch.schemes import Mode
     from bgsa_tpu_torch import cli
     from bgsa_tpu_torch.ops import myers_semiglobal as ms
 
@@ -411,7 +464,7 @@ BANDED_GRID = [  # (q_len, s_len, k): every route and edge
 BANDED_KINDS = ("garbage", "near", "mix")
 RAGGED_S = (1, 129, 1000)
 # timed shapes (label, Q, S) at 150 bp, k=8: the JAX bench's banded line and
-# one bucket of the production run (TPU_BUCKET_SIZE // 151, in 128s)
+# one bucket of the production run (BUCKET_SIZE // 151, in 128s)
 BANDED_TIMED = (("bench line (bench.py:278-284)", 8, 65280),
                 ("one production bucket", 20, 190080))
 # production runs: subjects of the -k 8 run, of the -k 16 and dual slices,
@@ -433,8 +486,8 @@ def banded_inputs(rng, Q, m, S, n, k, kind):
     """(queries, subjects) codes: all-garbage subjects (every lane exits),
     all-near subjects (queries and subjects within k/4 substitutions of one
     base sequence: where s_len <= q_len no pair exits), or the read-filter mix
-    (bgsa_tpu.benchutil.filter_mix_dataset, 30 % near)."""
-    from bgsa_tpu.benchutil import filter_mix_dataset
+    (benchutil.filter_mix_dataset, 30 % near)."""
+    from bgsa_tpu_torch.benchutil import filter_mix_dataset
 
     if kind == "mix":
         q, s = filter_mix_dataset(rng, Q, S, max(m, n, 6))
@@ -478,7 +531,7 @@ def banded_compare(name, args, qt, m, n, k):
 
 
 def phase_banded_kernels(rng):
-    from bgsa_tpu import pack as host_pack
+    from bgsa_tpu_torch import pack as host_pack
     from bgsa_tpu_torch import pack
     from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
 
@@ -495,9 +548,9 @@ def phase_banded_kernels(rng):
                 last = kind == "mix" and S == RAGGED_S[-1]
                 if last:
                     lo, hi, inj = pack.pack_banded(codes, k, m)
-                    for got, want in zip((lo, hi, inj), host_pack.pack_banded(s, k, m)):
+                    for got, want in zip((lo, hi, inj), host_pack.pack_banded_host(s, k, m)):
                         check(torch.equal(got.cpu(), pack.eq_from_numpy(want)),
-                              f"device pack_banded != bgsa_tpu.pack.pack_banded at {(m, n, k)}")
+                              f"device pack_banded != pack_banded_host at {(m, n, k)}")
                 # the route's kernel on every input; on the mix at S=1000 also
                 # every other kernel that takes the geometry
                 for name in [route] + [x for x in KERNELS if x != route] if last else [route]:
@@ -515,13 +568,16 @@ def phase_banded_kernels(rng):
                         also.append(name)
         print(f"  q={m:3d} s={n:3d} k={k:2d}: route {route}, also {', '.join(also) or '-'}; "
               f"share over budget: {', '.join(line)}; max |diff| 0")
-    print("  device pack_banded equals bgsa_tpu.pack.pack_banded on every geometry")
+    print("  device pack_banded equals pack_banded_host on every geometry")
     return max_err
 
 
 def phase_banded_bench(rng, smi):
-    from bgsa_tpu.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch import roofline
     from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
+    from bgsa_tpu_torch.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.ops import banded as banded_ops
+    from bgsa_tpu_torch.ops.banded_packed import packed_subbands
 
     print(f"== phase 7: banded kernel and plain times ({smi})")
     n = m = 150
@@ -532,8 +588,15 @@ def phase_banded_bench(rng, smi):
         q, s = filter_mix_dataset(rng, Q, S, n)
         codes = torch.from_numpy(s.astype(np.int32)).cuda()
         qt = torch.from_numpy(q).cuda()
+        # the bound's path: the query-code checks fall through on codes 0..3
+        check(int(codes.max()) < 4 and int(qt.max()) < 4, "the banded bench inputs hold N")
         cells = Q * m * S * n
         print(f"  {label}: Q={Q} m={m} S={S} n={n} k={k}, filter mix, full-matrix cells")
+        live = []  # live lanes before each column, counted by the plain stream version
+        banded_ops.banded_stream_ref(engine.kernel_args("banded_stream", codes, m)[0], qt,
+                                     q_len=m, s_len=n, k=k, live=live)
+        print(f"    live (lane, column) pairs: {sum(live)} of {Q * S * m} "
+              f"({sum(live) / (Q * S * m):.3f})")
         for name, (kernel, plain) in KERNELS.items():
             pack_ms = statistics.median(
                 cuda_times_ms(lambda: engine.kernel_args(name, codes, m), runs=5, warmup=1))
@@ -551,7 +614,10 @@ def phase_banded_bench(rng, smi):
                   f"over 3 runs; device packing {pack_ms:.3f} ms; over budget {over:.3f}; "
                   f"max |diff| {err} ({smi})")
             if label == BANDED_TIMED[0][0]:
-                results[name] = (err, kernel_ms, plain_ms)
+                n_sub = packed_subbands(m, n, k) if name == "banded_stream_packed" else 1
+                results[name] = (err, kernel_ms, plain_ms, Work(
+                    main_library(), {"n_sub": n_sub}, sum(live) / n_sub,
+                    roofline.io_bytes(*args, qt, got), roofline.banded_ops(name, live)))
     return results
 
 
@@ -565,8 +631,8 @@ def write_codes(path, codes):
 
 
 def check_against_banded_ref(rng, queries, subjects, scores, k):
-    """4,096 sampled (query, subject) scores against bgsa_tpu.banded_ref."""
-    from bgsa_tpu import banded_ref
+    """4,096 sampled (query, subject) scores against banded_ref."""
+    from bgsa_tpu_torch import banded_ref
 
     q_idx = rng.integers(0, len(queries), N_SAMPLES)
     s_idx = rng.integers(0, len(subjects), N_SAMPLES)
@@ -574,12 +640,12 @@ def check_against_banded_ref(rng, queries, subjects, scores, k):
                      for qi, si in zip(q_idx, s_idx)])
     bad = int(np.count_nonzero(scores[q_idx, s_idx] != want))
     check(bad == 0, f"{bad} of {N_SAMPLES} sampled scores differ from banded_ref (-k {k})")
-    print(f"  {N_SAMPLES} sampled (query, subject) scores equal bgsa_tpu.banded_ref "
+    print(f"  {N_SAMPLES} sampled (query, subject) scores equal banded_ref "
           f"({float(np.mean(want == 127)):.3f} over budget)")
 
 
 def phase_banded_production(rng, tmp, smi):
-    from bgsa_tpu.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.benchutil import filter_mix_dataset
     from bgsa_tpu_torch import cli
     from bgsa_tpu_torch.banded_pipeline import BandedEngine
 
@@ -732,6 +798,9 @@ def phase_bitpal_kernels(rng):
 
 
 def phase_bitpal_bench(rng, smi):
+    from bgsa_tpu_torch import roofline
+    from bgsa_tpu_torch.ops import build
+
     print(f"== phase 10: BitPAl kernel and plain times, (2,-3,-5) ({smi})")
     results = {}
     routes = (("bitpal_packed", 31), ("bitpal", 32))
@@ -741,7 +810,7 @@ def phase_bitpal_bench(rng, smi):
         eqs = {wb: device_eq(np.random.default_rng(seed), S, n, wb) for wb in (31, 32)}
         qt = torch.from_numpy(random_codes(rng, (Q, m))).cuda()
         print(f"  {label}: Q={Q} m={m} S={S} n={n} (device unpack and pack_eq equal "
-              "bgsa_tpu.pack's host versions)")
+              "the host packers)")
         for semi in ((False,) if label == BITPAL_TIMED[0][0] else (False, True)):
             for name, wb in routes:
                 fn = bitpal_fns(name)[0]
@@ -755,14 +824,20 @@ def phase_bitpal_bench(rng, smi):
                       f"median {kernel_ms:.4f} ms over 10 runs = {cells / kernel_ms / 1e6:.1f} "
                       f"GCUPS; plain torch {plain_ms:.1f} ms (one run); max |diff| {err} ({smi})")
                 if label == BITPAL_TIMED[0][0]:
-                    results[name] = (err, kernel_ms, plain_ms)
+                    lib = build.load_scheme(name, 2, -3, -5)
+                    W = eqs[wb].shape[1]
+                    scratch = W > lib.reg_words  # the scratch instance (W = 0) loops W words
+                    results[name] = (err, kernel_ms, plain_ms, Work(
+                        lib.path, {"bits": wb, "W": 0 if scratch else W}, Q * m * S,
+                        roofline.io_bytes(eqs[wb], qt) + 4 * Q * S,
+                        roofline.word_kernel_ops(name, Q, m, S, n), W if scratch else 0))
     return results
 
 
 def phase_bitpal_golden(tmp):
-    from bgsa_tpu.io import result as result_io
-    from bgsa_tpu.pipeline import PipelineConfig
-    from bgsa_tpu.schemes import Scoring
+    from bgsa_tpu_torch.io import result as result_io
+    from bgsa_tpu_torch.pipeline import PipelineConfig
+    from bgsa_tpu_torch.schemes import Scoring
     from bgsa_tpu_torch.pipeline import run_alignment
 
     print("== phase 11: the 500 bp BitPAl golden through bgsa_tpu_torch.pipeline.run_alignment")
@@ -785,7 +860,7 @@ def phase_bitpal_golden(tmp):
 
 def subject_codes(path, count):
     """The first ``count`` lines of a line-format subject file as (count, n) codes."""
-    from bgsa_tpu.pack import encode_ascii
+    from bgsa_tpu_torch.pack import encode_ascii
 
     with open(path, "rb") as f:
         length = f.readline().index(b"\n")
@@ -794,8 +869,8 @@ def subject_codes(path, count):
 
 
 def check_bitpal_oracle(rng, queries, subjects, scores, scoring, semi):
-    """4,096 sampled (query, subject) scores against bgsa_tpu.oracle."""
-    from bgsa_tpu import oracle
+    """4,096 sampled (query, subject) scores against oracle."""
+    from bgsa_tpu_torch import oracle
 
     q_idx = rng.integers(0, len(queries), N_SAMPLES)
     s_idx = rng.integers(0, len(subjects), N_SAMPLES)
@@ -809,14 +884,14 @@ def check_bitpal_oracle(rng, queries, subjects, scores, scoring, semi):
             want[sel] = oracle.align_scores(queries[qi], subjects[s_idx[sel]], scoring)
     bad = int(np.count_nonzero(scores[q_idx, s_idx] != want))
     check(bad == 0, f"{bad} of {N_SAMPLES} sampled scores differ from the oracle")
-    print(f"  {N_SAMPLES} sampled (query, subject) scores equal bgsa_tpu.oracle."
+    print(f"  {N_SAMPLES} sampled (query, subject) scores equal oracle."
           f"{'align_scores_query_in_subject' if semi else 'align_scores'}")
 
 
 def phase_bitpal_production(rng, tmp, smi, inputs):
-    from bgsa_tpu.io import seqfile
-    from bgsa_tpu.pipeline import PipelineConfig
-    from bgsa_tpu.schemes import Mode, Scoring, normalize
+    from bgsa_tpu_torch.io import seqfile
+    from bgsa_tpu_torch.pipeline import PipelineConfig
+    from bgsa_tpu_torch.schemes import Mode, Scoring, normalize
     from bgsa_tpu_torch import cli, pack
     from bgsa_tpu_torch.pipeline import Engine
 
@@ -872,6 +947,298 @@ def phase_bitpal_production(rng, tmp, smi, inputs):
     return launches, max_err
 
 
+# -- the 31-bit Myers kernel, the mesh and --shards ----------------------------
+
+MYERS_GLOBAL = ("bgsa_tpu_torch/csrc/myers_pallas.cu", "bgsa_tpu/ops/myers_pallas.py:89")
+INT_PEAK = ("bgsa_tpu_torch/csrc/int_peak.cu", "scripts/roofline.py:187")
+# (n, m, Q, S): every 31-bit word boundary near 31, 62 and 93, the register /
+# scratch switch above 32 words (992 bp), and ragged subject counts
+MYERS31_GRID = [(n, 150, 3, 1000) for n in (1, 30, 31, 32, 61, 62, 63, 92, 93, 94, 150,
+                                            500, 992, 993, 1500)]
+MYERS31_GRID += [(150, 60, 2, 1), (500, 100, 3, 129), (62, 1100, 2, 777)]
+SHARD_SUBJECTS = 20_000  # subjects of the sharded-engine checks (even: two shards)
+# timed shapes (label, Q, m, S, n) of phase 14: the JAX bench's Myers line and
+# one production bucket (S None: the bucket's subject count)
+MYERS31_TIMED = (("bench geometry (bench.py:187)", 40, 500, 32768, 500),
+                 ("one production bucket", 20, 150, None, 150))
+CARD = torch.device("cuda", 0)  # the mesh and shard checks repeat it
+
+
+def phase_myers_global_kernel(rng):
+    from bgsa_tpu_torch import pack
+    from bgsa_tpu_torch.ops import build
+    from bgsa_tpu_torch.ops import myers_pallas as mp
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+
+    print("== phase 13: the 31-bit Myers kernel vs its plain version and the full-word "
+          "kernel on the card (tolerance 0)")
+    reg_words = build.load().lib.bgsa_myers_global_reg_words()
+    max_err = 0
+    for n, m, Q, S in MYERS31_GRID:
+        queries = torch.from_numpy(random_codes(rng, (Q, m), n_rate=0.03)).cuda()
+        codes = torch.from_numpy(random_codes(rng, (S, n), n_rate=0.03)).cuda()
+        eq31, eq32 = pack.pack_eq(codes, 31), pack.pack_eq(codes, 32)
+        for factor in (-1, 1):
+            before = mp.LAUNCHES
+            got = mp.myers_global(eq31, queries, read_len=n, factor=factor)
+            torch.cuda.synchronize()
+            check(mp.LAUNCHES == before + 1, "myers_global did not launch its kernel")
+            want = mp.myers_global_ref(eq31, queries, read_len=n, factor=factor)
+            full = ms.myers_semiglobal(eq32, queries, read_len=n, factor=factor, is_global=True)
+            err = int((got.long() - want.long()).abs().max())
+            check(err == 0, f"myers_global kernel != plain at n={n} m={m} S={S}")
+            check(torch.equal(got, full), f"myers_global != the full-word kernel at n={n}")
+            max_err = max(max_err, err)
+        W = eq31.shape[1]
+        print(f"  n={n:5d} m={m:5d} Q={Q} S={S:5d} W={W:3d} "
+              f"({'registers' if W <= reg_words else 'scratch'}), factor -1 and +1: "
+              "max |diff| 0 against the plain version, equal to myers_semiglobal's global scores")
+    return max_err
+
+
+def phase_myers_global_bench(rng, smi):
+    from bgsa_tpu_torch import roofline
+    from bgsa_tpu_torch.ops import myers_pallas as mp
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+    from bgsa_tpu_torch.pipeline import BUCKET_SIZE
+
+    print(f"== phase 14: 31-bit and full-word Myers times on the same subjects ({smi})")
+    result = None
+    for label, Q, m, S, n in MYERS31_TIMED:
+        S = S or BUCKET_SIZE // (n + 1) // 128 * 128
+        seed = int(rng.integers(1 << 30))  # the same subjects in both word layouts
+        eq31 = device_eq(np.random.default_rng(seed), S, n, 31)
+        eq32 = device_eq(np.random.default_rng(seed), S, n, 32)
+        qt = torch.from_numpy(random_codes(rng, (Q, m))).cuda()
+        cells = Q * m * S * n
+        print(f"  {label}: Q={Q} m={m} S={S} n={n}, global")
+        times = {}
+        for name, fn, ref, eq in (
+                ("myers_global", mp.myers_global, mp.myers_global_ref, eq31),
+                ("myers_semiglobal", lambda e, q, **kw: ms.myers_semiglobal(e, q, is_global=True,
+                                                                            **kw),
+                 lambda e, q, **kw: ms.myers_semiglobal_ref(e, q, is_global=True, **kw), eq32)):
+            got = fn(eq, qt, read_len=n)
+            want = ref(eq, qt, read_len=n)
+            err = int((got.long() - want.long()).abs().max())
+            check(err == 0, f"{name} kernel != plain at the {label}")
+            kernel_ms = statistics.median(cuda_times_ms(lambda: fn(eq, qt, read_len=n),
+                                                        runs=20, warmup=3))
+            plain_ms = statistics.median(cuda_times_ms(lambda: ref(eq, qt, read_len=n),
+                                                       runs=3, warmup=1))
+            times[name] = got
+            print(f"    {name:16s} kernel median {kernel_ms:.4f} ms over 20 runs = "
+                  f"{cells / kernel_ms / 1e6:.1f} GCUPS; plain torch median {plain_ms:.1f} ms "
+                  f"over 3 runs; max |diff| {err} ({smi})")
+            if name == "myers_global" and result is None:
+                result = (err, kernel_ms, plain_ms, Work(
+                    main_library(), {"W": eq31.shape[1]}, Q * m * S,
+                    roofline.io_bytes(eq31, qt) + 4 * Q * S,
+                    roofline.word_kernel_ops("myers_global", Q, m, S, n)))
+        check(torch.equal(times["myers_global"], times["myers_semiglobal"]),
+              f"the two layouts' scores differ at the {label}")
+        print("    both kernels give the same scores")
+    return result
+
+
+def equal_engines(make, q, s, label):
+    """An engine on two shards of cuda:0 against the same engine on one
+    device: equal scores, and each shard launched the engine's kernel."""
+    one = np.asarray(make(None).scores(q, s))
+    two = make([CARD] * 2)
+    before = kernel_launch_counts()
+    got = two.scores(q, s)
+    after = kernel_launch_counts()
+    check(len(got.shards) == 2, f"{label}: not two shards")
+    check(np.array_equal(np.asarray(got), one), f"{label}: two shards != one device")
+    grew = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    check(sum(grew.values()) == 2, f"{label}: the shards launched {grew}, not one kernel each")
+    return grew
+
+
+def kernel_launch_counts():
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+
+    return {**banded_launches(), **bitpal_launches(), "myers_semiglobal": ms.LAUNCHES}
+
+
+def phase_mesh_and_shards(rng, tmp, smi, slice_path):
+    import contextlib
+    import io
+
+    from bgsa_tpu_torch import cli, pack
+    from bgsa_tpu_torch.banded_pipeline import BandedEngine
+    from bgsa_tpu_torch.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.io import result as result_io
+    from bgsa_tpu_torch.ops import myers_pallas as mp
+    from bgsa_tpu_torch.parallel.mesh import make_mesh, myers_global_sharded
+    from bgsa_tpu_torch.pipeline import BUCKET_SIZE, Engine, PipelineConfig, run_alignment
+    from bgsa_tpu_torch.schemes import Scoring, normalize
+
+    print(f"== phase 15: the device mesh and --shards on one card, cuda:0 repeated ({smi})")
+    Q, n = 20, 150
+    S = BUCKET_SIZE // (n + 1) // 128 * 128
+    eq31 = device_eq(rng, S, n, 31)
+    qt = torch.from_numpy(random_codes(rng, (Q, n))).cuda()
+    single = mp.myers_global(eq31, qt, read_len=n).cpu().numpy()
+    mesh = make_mesh([CARD] * 4, query_shards=2)
+    mp.LAUNCHES = 0  # the mesh path: myers_global_sharded, merge both ways
+    sharded = myers_global_sharded(eq31, qt, mesh, read_len=n)
+    merged = myers_global_sharded(eq31, qt, mesh, read_len=n, merge=True)
+    torch.cuda.synchronize()
+    launches = mp.LAUNCHES
+    check(launches == 8, f"the mesh path launched myers_global {launches} times, not 4 + 4")
+    check(np.array_equal(np.asarray(sharded), single), "sharded scores != one device")
+    check(merged.device == CARD and np.array_equal(merged.cpu().numpy(), single),
+          "merged scores != one device")
+    print(f"  myers_global_sharded over a {mesh.shape} mesh of cuda:0 at the production bucket "
+          f"(Q={Q}, S={S}, n={n}): merge=False and merge=True equal the one-device kernel; "
+          f"myers_global launches {launches}")
+
+    # the engines on two shards against one device, 2-bit and 2bit+N transports
+    queries = random_codes(rng, (Q, n))
+    clean = random_codes(rng, (SHARD_SUBJECTS, n)).astype(np.uint8)
+    rare_n = clean.copy()
+    rare_n[rng.random(rare_n.shape) < 5e-4] = 4
+    for subjects in (clean, rare_n):
+        transport = pack.select_transport(subjects, n_shards=2)[0]
+        for label, scoring, packed in (("Myers", Scoring(0, -1, -1), True),
+                                       ("BitPAl packed", Scoring(2, -3, -5), True),
+                                       ("BitPAl non-packed", Scoring(2, -3, -5), False)):
+            grew = equal_engines(lambda d: Engine(normalize(scoring), PipelineConfig(
+                bitpal_packed=packed), CARD, devices=d), queries, subjects, label)
+            print(f"  Engine {label:17s} ({transport:5s}): two shards == one device; "
+                  f"launches {grew}")
+    for m, s_len, k in ((150, 150, 8), (150, 150, 16), (150, 148, 8), (55, 20, 40)):
+        q, subj = filter_mix_dataset(rng, Q, SHARD_SUBJECTS, max(m, s_len))
+        subj = subj[:, :s_len].astype(np.uint8)
+        subj[rng.random(subj.shape) < 5e-4] = 4
+        route = BandedEngine(k, device=CARD).route(m, s_len)
+        grew = equal_engines(lambda d: BandedEngine(k, device=CARD, devices=d), q[:, :m],
+                             subj, f"BandedEngine {route}")
+        transport = pack.select_transport(subj, n_shards=2)[0]
+        print(f"  BandedEngine q={m} s={s_len} k={k} ({route}, {transport}): two shards == one "
+              f"device; launches {grew}")
+
+    # the CLI: --shards 0 and the JAX error text past the visible devices
+    with open(slice_path, "rb") as f:
+        length = f.readline().index(b"\n")
+    qp = os.path.join(tmp, "shard_queries.txt")
+    write_codes(qp, random_codes(rng, (Q, length)))
+    outs = {}
+    for label, flags in (("unsharded", []), ("--shards 0", ["--shards", "0"])):
+        res = os.path.join(tmp, f"shards_{len(flags)}.bin")
+        rc = cli.align_main(["-q", qp, "-d", slice_path, "-f", res, "--quiet", *flags])
+        check(rc == 0, f"bgsa-torch-align {' '.join(flags)} exited {rc}")
+        outs[label] = res
+    two = os.path.join(tmp, "shards_two.bin")
+    run_alignment(qp, slice_path, two, devices=[CARD] * 2)
+    texts = {}
+    for label, res in (*outs.items(), ("two shards", two)):
+        result_io.convert_result(res, res + ".txt")
+        with open(res + ".txt", "rb") as f:
+            texts[label] = f.read()
+    check(texts["--shards 0"] == texts["unsharded"] == texts["two shards"],
+          "a sharded run's converted text != the unsharded run's")
+    # the lane-pad unit is v_num x shards: one card pads as one device does
+    same_bytes = torch.cuda.device_count() == 1
+    for suffix in ("", ".info") if same_bytes else ():
+        with open(outs["unsharded"] + suffix, "rb") as f, open(outs["--shards 0"] + suffix,
+                                                               "rb") as g:
+            check(f.read() == g.read(), f"--shards 0 {suffix or 'result'} bytes != unsharded")
+    print(f"  bgsa-torch-align --shards 0 ({torch.cuda.device_count()} visible device(s)) on the "
+          f"{os.path.basename(slice_path)} slice: converted text equal to the unsharded run's"
+          f"{', result and .info bytes too' if same_bytes else ''}; run_alignment on two "
+          "shards of cuda:0: converted text equal")
+    too_many = torch.cuda.device_count() + 1
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.align_main(["-q", qp, "-d", slice_path, "-f", os.path.join(tmp, "x.bin"),
+                             "--quiet", "--shards", str(too_many)])
+    want = (f"--shards {too_many} exceeds the {too_many - 1} visible local device(s); "
+            "use --shards 0 for all local devices")
+    check(rc == 1 and want in err.getvalue(), f"--shards {too_many}: rc {rc}, {err.getvalue()!r}")
+    print(f"  --shards {too_many}: exit 1, {err.getvalue().strip()!r}")
+    return launches
+
+
+def phase_int_peak(smi):
+    from bgsa_tpu_torch import roofline
+
+    print(f"== phase 16: the int32 ALU issue peak ({smi})")
+    sms, clock = roofline.sm_count(), roofline.sm_clock_mhz()
+    derived = roofline.derived_int32_peak(clock, sms)
+    roofline.LAUNCHES = 0  # the bound path: the measurement itself
+    runs = {chains: roofline.measure_int32_peak(chains=chains) for chains in (8, 16, 32)}
+    launches = roofline.LAUNCHES
+    best = max(runs.values(), key=lambda r: r["ops_per_s"])
+    text = roofline.sass_text(main_library())
+    check(text is not None, "no cuobjdump: the SASS per chain step cannot be read")
+    functions = roofline.sass_functions(text)
+    spec = roofline.SASS_SPECS["int_peak"]
+    for chains, r in runs.items():
+        # both loops of the kernel: 35 iterations = two main-loop trips of 16 and 3 more
+        x = r["x"]
+        err = int((roofline.int_peak(x, steps=35, unroll=1).long()
+                   - roofline.int_peak_ref(x, steps=35, unroll=1).long()).abs().max())
+        check(err == 0, f"chains={chains}: int_peak kernel != plain at 35 iterations")
+        check(1.8 <= r["linearity"] <= 2.2, f"chains={chains}: doubling the iterations took "
+                                            f"x{r['linearity']:.3f}")
+        per_step = {p: v / chains for p, v in roofline.column_instructions(
+            roofline.find_function(functions, spec.function.format(chains=chains)), spec).items()}
+        steps_per_s = r["ops_per_s"] / roofline.PEAK_OPS_PER_CHAIN_ITER
+        share = {p: steps_per_s * v / (roofline.PIPE_RATES[p] * sms * clock * 1e6)
+                 for p, v in per_step.items()}
+        print(f"  chains={chains:2d}: {r['ms']:.3f} ms ({r['steps']} x {r['unroll']} iterations, "
+              f"{r['elements']} elements), x2 iterations {r['ms_double']:.3f} ms = "
+              f"x{r['linearity']:.3f}; {r['ops_per_s'] / 1e12:.3f} T source-ops/s = "
+              f"{100 * r['ops_per_s'] / derived:.1f} % of one pipe; SASS per chain step "
+              f"{per_step['alu']:.2f} ALU-pipe, {per_step['fma']:.2f} FMA-pipe, "
+              f"{per_step['issue']:.2f} issued -> ALU pipe {100 * share['alu']:.1f} %, "
+              f"FMA pipe {100 * share['fma']:.1f} %, issue {100 * share['issue']:.1f} % of its "
+              "rate; kernel vs plain at 35 iterations: max |diff| 0")
+        for p, v in share.items():
+            check(v <= 1.05, f"chains={chains}: the {p} pipe at {100 * v:.1f} % of its "
+                             "published rate")
+    print(f"  {sms} SMs x 64 int32/clock x {clock:.0f} MHz (clocks.max.sm) = "
+          f"{derived / 1e12:.3f} T/s a pipe; fastest: {best['ops_per_s'] / 1e12:.3f} T "
+          f"source-ops/s at {best['chains']} chains; int_peak launches {launches}")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = roofline.int_peak_ref(best["x"], steps=best["steps"], unroll=best["unroll"])
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    err = int((best["out"].long() - want.long()).abs().max())
+    check(err == 0, "the fastest int_peak run's output != its plain version")
+    print(f"  the fastest run's output vs the plain version on the same inputs: max |diff| {err}; "
+          f"plain {plain_ms:.1f} ms (one run)")
+    work = Work(main_library(), {"chains": best["chains"]},
+                best["elements"] * best["steps"] * best["unroll"], best["bytes"], best["ops"])
+    return best, err, launches, plain_ms, work
+
+
+def kernel_bound(name, ms, work, sass, peak_ops_per_s):
+    """(bound ms, "operations" or "bytes", pipe, instructions per column,
+    JAX-op share) of one kernel row."""
+    from bgsa_tpu_torch import roofline
+
+    if work.library not in sass:
+        text = roofline.sass_text(work.library)
+        check(text is not None, "no cuobjdump: the kernels' SASS cannot be read")
+        sass[work.library] = roofline.sass_functions(text)
+    spec = roofline.SASS_SPECS[name]
+    per_column = roofline.column_instructions(
+        roofline.find_function(sass[work.library], spec.function.format(**work.shape)), spec,
+        inner_trips=work.inner_trips)
+    instructions, rate, pipe = roofline.instruction_bound(
+        per_column, work.columns, roofline.sm_count(), roofline.sm_clock_mhz())
+    bound_ms, bound_by = roofline.bound(instructions, work.nbytes, rate)
+    check(bound_ms <= 1.05 * ms, f"{name}: bound {bound_ms:.4f} ms above its time {ms:.4f} ms")
+    jax_ms = roofline.bound(work.jax_ops, work.nbytes, peak_ops_per_s)[0]
+    return bound_ms, bound_by, pipe, per_column, jax_ms / ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -887,7 +1254,7 @@ def main() -> int:
     try:
         smi = phase_environment()
         max_err = phase_kernel_vs_plain(rng)
-        bench_err, kernel_ms, plain_ms = phase_bench(rng, smi)
+        bench_err, kernel_ms, plain_ms, myers_work = phase_bench(rng, smi)
         with tempfile.TemporaryDirectory(prefix="bgsa_smoke_") as tmp:
             phase_goldens(tmp)
             launches, inputs = phase_production(rng, tmp, smi)
@@ -899,44 +1266,49 @@ def main() -> int:
             phase_bitpal_golden(tmp)
             bitpal_launched, bitpal_production_err = phase_bitpal_production(
                 rng, tmp, smi, inputs)
+            global_err = phase_myers_global_kernel(rng)
+            global_times = phase_myers_global_bench(rng, smi)
+            global_launched = phase_mesh_and_shards(rng, tmp, smi, inputs[2])
+        peak, peak_err, peak_launched, peak_plain, peak_work = phase_int_peak(smi)
         check("jax" not in sys.modules, "jax was imported")
+        check(not any(m == "bgsa_tpu" or m.startswith("bgsa_tpu.") for m in sys.modules),
+              "a bgsa_tpu module was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    kernels = [{
-        "name": "myers_semiglobal",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max(max_err, bench_err),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]
+    # (name, source, replaces, launches on its path, max |diff|, ms, plain ms, Work)
+    rows = [("myers_semiglobal", KERNEL_SOURCE, KERNEL_REPLACES, launches,
+             max(max_err, bench_err), kernel_ms, plain_ms, myers_work)]
     for name, (source, replaces) in BANDED_KERNELS.items():
-        err, ms, plain = banded_times[name]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": banded_launched[name],
-            "max_abs_err": max(err, banded_err[name], production_err[name]),
-            "ms": ms,
-            "plain_ms": plain,
-        })
+        err, ms, plain, work = banded_times[name]
+        rows.append((name, source, replaces, banded_launched[name],
+                     max(err, banded_err[name], production_err[name]), ms, plain, work))
     for name, (source, replaces) in BITPAL_KERNELS.items():
-        err, ms, plain = bitpal_times[name]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": bitpal_launched[name],
-            "max_abs_err": max(err, bitpal_err[name], bitpal_production_err[name]),
-            "ms": ms,
-            "plain_ms": plain,
-        })
+        err, ms, plain, work = bitpal_times[name]
+        rows.append((name, source, replaces, bitpal_launched[name],
+                     max(err, bitpal_err[name], bitpal_production_err[name]), ms, plain, work))
+    err, ms, plain, work = global_times
+    rows.append(("myers_global", *MYERS_GLOBAL, global_launched, max(err, global_err), ms, plain,
+                 work))
+    rows.append(("int_peak", *INT_PEAK, peak_launched, peak_err, peak["ms"], peak_plain,
+                 peak_work))
+    print("== bounds: each kernel's SASS per column at the slowest pipe's rate, or its bytes")
+    kernels, sass = [], {}
+    try:
+        for name, source, replaces, launched, err, ms, plain, work in rows:
+            bound_ms, bound_by, pipe, per_column, jax_share = kernel_bound(
+                name, ms, work, sass, peak["ops_per_s"])
+            kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                            "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+            print(f"  {name:21s} {ms:10.4f} ms, bound {bound_ms:10.4f} ms by {bound_by} "
+                  f"({pipe} pipe; {100 * bound_ms / ms:.1f} % of the time); SASS per column "
+                  f"{per_column['alu']:.1f} ALU, {per_column['fma']:.1f} FMA, "
+                  f"{per_column['issue']:.1f} issued; vs JAX-op count at the peak mix's rate "
+                  f"{100 * jax_share:.1f} %; launches {launched}")
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -89,7 +89,7 @@ def generic_kernels(tmp):
 
 
 def packed_instantiations(tmp, rng):
-    from bgsa_tpu.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.benchutil import filter_mix_dataset
     from bgsa_tpu_torch.banded_pipeline import BandedEngine
     from bgsa_tpu_torch.ops import banded_packed as bp
     from bgsa_tpu_torch.ops import build
@@ -119,7 +119,7 @@ def packed_instantiations(tmp, rng):
 
 
 def cli_runs(tmp):
-    from bgsa_tpu.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.benchutil import filter_mix_dataset
     from chip_smoke import write_codes
 
     print("== 3: -k 8, 20 x 150 bp vs 1,000,000 x 150 bp filter mix through the CLI")
@@ -168,16 +168,16 @@ def profile_cli(tmp, args):
 
 
 def bucket_stages(rng):
-    from bgsa_tpu import pack as host_pack
-    from bgsa_tpu.benchutil import filter_mix_dataset
-    from bgsa_tpu.pipeline import TPU_BUCKET_SIZE
+    from bgsa_tpu_torch import pack as host_pack
+    from bgsa_tpu_torch.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.pipeline import BUCKET_SIZE
     from bgsa_tpu_torch import pack
     from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
     from chip_smoke import cuda_times_ms
 
     n = m = 150
     k, Q = 8, 20
-    S = TPU_BUCKET_SIZE // (n + 1) // 128 * 128
+    S = BUCKET_SIZE // (n + 1) // 128 * 128
     q, s = filter_mix_dataset(rng, Q, S, n)
     transport, payload = host_pack.select_transport(s)
     if isinstance(payload, tuple):

@@ -46,9 +46,9 @@ def cli_runs(tmp):
 
 
 def bucket_stages(rng):
-    from bgsa_tpu import pack as host_pack
-    from bgsa_tpu.pipeline import TPU_BUCKET_SIZE, PipelineConfig
-    from bgsa_tpu.schemes import Scoring, normalize
+    from bgsa_tpu_torch import pack as host_pack
+    from bgsa_tpu_torch.pipeline import BUCKET_SIZE, PipelineConfig
+    from bgsa_tpu_torch.schemes import Scoring, normalize
     from bgsa_tpu_torch import pack
     from bgsa_tpu_torch.ops.bitpal import bitpal
     from bgsa_tpu_torch.ops.bitpal_packed import bitpal_packed
@@ -57,7 +57,7 @@ def bucket_stages(rng):
 
     n = m = 150
     Q = 20
-    S = TPU_BUCKET_SIZE // (n + 1) // 128 * 128
+    S = BUCKET_SIZE // (n + 1) // 128 * 128
     q, s = random_codes(rng, (Q, m)), random_codes(rng, (S, n))
     transport, payload = host_pack.select_transport(s)
     if isinstance(payload, tuple):

@@ -16,9 +16,10 @@ from bgsa_tpu import banded_pipeline as jax_banded_pipeline
 from bgsa_tpu import cli as jax_cli
 from bgsa_tpu import banded_ref as model
 from bgsa_tpu.benchutil import filter_mix_dataset
-from bgsa_tpu.pipeline import PipelineConfig
+from bgsa_tpu.pipeline import PipelineConfig as JaxConfig
 from bgsa_tpu_torch import align, cli
 from bgsa_tpu_torch import banded_pipeline as port
+from bgsa_tpu_torch.pipeline import PipelineConfig
 
 
 def read(path):
@@ -58,7 +59,7 @@ def test_run_banded_matches_jax(tmp_path, m, n, k, S, cfg):
     qp, sp, q, s = filter_files(tmp_path, 3, S, m, n)
     got, want = str(tmp_path / "port.bin"), str(tmp_path / "jax.bin")
     stats = port.run_banded(qp, sp, got, k, PipelineConfig(**cfg), device="cpu")
-    jax_banded_pipeline.run_banded(qp, sp, want, k, PipelineConfig(backend="xla", **cfg))
+    jax_banded_pipeline.run_banded(qp, sp, want, k, JaxConfig(backend="xla", **cfg))
     assert read(got) == read(want)
     assert read(got + ".info") == read(want + ".info")
     assert stats.subject_count == S
@@ -138,7 +139,8 @@ def test_banded_engine_pads_to_n_sub_only():
 def test_run_banded_rejects_unported_roles():
     with pytest.raises(NotImplementedError, match="multi-host"):
         port.run_banded("q", "d", "unused.bin", 8, shard=(0, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
+    # local sharding is ported: two shards need two local devices (the CPU is one)
+    with pytest.raises(ValueError, match="exceeds the 1 visible local device"):
         port.BandedEngine(8, PipelineConfig(local_shards=2), "cpu")
 
 
@@ -161,7 +163,7 @@ def test_cli_banded_run_matches_jax(tmp_path, capsys):
     assert "score is 0, -1, -1" in out
     want = str(tmp_path / "jax.bin")
     jax_banded_pipeline.run_banded(qp, sp, want, 8,
-                                   PipelineConfig(backend="xla", bucket_size=40000))
+                                   JaxConfig(backend="xla", bucket_size=40000))
     assert read(res) == read(want) and read(res + ".info") == read(want + ".info")
     assert '"subject_count": 2000' in read(stats).decode()
 

@@ -7,6 +7,7 @@ numpy oracle. ``bgsa-torch-align`` takes ``--packed/--no-packed`` and
 ``--carry`` with ``bgsa-align``'s rules, word for word.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -16,10 +17,12 @@ from bgsa_tpu import cli as jax_cli
 from bgsa_tpu import pipeline as jax_pipeline
 from bgsa_tpu.io import result as result_io
 from bgsa_tpu.oracle import align_scores, align_scores_query_in_subject
-from bgsa_tpu.pipeline import PipelineConfig
-from bgsa_tpu.schemes import Mode, Scoring, normalize
+from bgsa_tpu import schemes as jax_schemes
+from bgsa_tpu.pipeline import PipelineConfig as JaxConfig
 from bgsa_tpu_torch import align, cli
 from bgsa_tpu_torch import pipeline as port
+from bgsa_tpu_torch.pipeline import PipelineConfig
+from bgsa_tpu_torch.schemes import Mode, Scoring, normalize
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -64,8 +67,8 @@ def test_run_alignment_matches_jax(tmp_path, packed, carry):
     got, want = str(tmp_path / "port.bin"), str(tmp_path / "jax.bin")
     stats = port.run_alignment(*MULTI, got, scoring=BITPAL, config=PipelineConfig(**cfg),
                                device="cpu")
-    jax_pipeline.run_alignment(*MULTI, want, scoring=BITPAL,
-                               config=PipelineConfig(backend="xla", **cfg))
+    jax_pipeline.run_alignment(*MULTI, want, scoring=jax_schemes.Scoring(2, -3, -5),
+                               config=JaxConfig(backend="xla", **cfg))
     assert stats.subject_count == 2000
     assert read(got) == read(want)
     assert read(got + ".info") == read(want + ".info")
@@ -129,12 +132,13 @@ def test_api_matches_oracle(mode, packed):
 @pytest.mark.parametrize("scoring", [BITPAL, Scoring(5, -1, -2)], ids=["2-3-5", "5-1-2"])
 def test_engine_route_and_layout_match_jax(scoring, packed, carry):
     scheme = normalize(scoring)
-    config = PipelineConfig(bitpal_packed=packed, bitpal_carry=carry)
-    engine = port.Engine(scheme, config, "cpu")
-    want_packed = jax_pipeline.bitpal_packed_route(scheme, packed)
+    engine = port.Engine(scheme, PipelineConfig(bitpal_packed=packed, bitpal_carry=carry), "cpu")
+    jax_scheme = jax_schemes.normalize(jax_schemes.Scoring(*dataclasses.astuple(scoring)))
+    jax_config = JaxConfig(bitpal_packed=packed, bitpal_carry=carry)
+    want_packed = jax_pipeline.bitpal_packed_route(jax_scheme, packed)
     assert port.bitpal_packed_route(scheme, packed) == want_packed
     assert engine.kernel == ("bitpal_packed" if want_packed else "bitpal")
-    assert engine.word_bits == jax_pipeline.Engine(scheme, config).word_bits
+    assert engine.word_bits == jax_pipeline.Engine(jax_scheme, jax_config).word_bits
 
 
 def test_resume_completes_a_truncated_bitpal_run(tmp_path):

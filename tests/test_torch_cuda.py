@@ -8,17 +8,19 @@ import numpy as np
 import pytest
 import torch
 
-from bgsa_tpu.benchutil import filter_mix_dataset
-from bgsa_tpu_torch import pack
+from bgsa_tpu_torch.benchutil import filter_mix_dataset
+from bgsa_tpu_torch import pack, roofline
 from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
 from bgsa_tpu_torch.ops import banded as bo
 from bgsa_tpu_torch.ops import banded_packed as bp
 from bgsa_tpu_torch.ops import bitpal as tb
 from bgsa_tpu_torch.ops import bitpal_packed as tbp
 from bgsa_tpu_torch.ops import build
+from bgsa_tpu_torch.ops import myers_pallas as mp
 from bgsa_tpu_torch.ops import myers_semiglobal as sg
+from bgsa_tpu_torch.parallel import mesh as mesh_mod
 from bgsa_tpu_torch.pipeline import Engine, PipelineConfig
-from bgsa_tpu.schemes import Mode, Scoring, normalize
+from bgsa_tpu_torch.schemes import Mode, Scoring, normalize
 
 pytestmark = pytest.mark.cuda
 
@@ -246,3 +248,86 @@ def test_bitpal_scheme_library_is_built_once(bitpal_cuda):
     assert (path, log, seconds) == (first.path, "", 0.0)
     other = Engine(normalize(Scoring(1, -1, -1)), PipelineConfig(), bitpal_cuda).load_library()
     assert other.path != first.path and other.path.endswith("-M1_I-1_G-1.so")
+
+
+# -- the 31-bit Myers kernel, the mesh, the engines on shards, the int32 peak -----
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 62, 93, 150, 992, 993, 1500])  # 993+: scratch path
+@pytest.mark.parametrize("factor", [-1, 1])
+def test_myers_global_matches_plain_and_full_word(cuda, n, factor):
+    rng = np.random.default_rng(n)
+    q = torch.from_numpy(codes(rng, (3, 70))).to(cuda)
+    subjects = torch.from_numpy(codes(rng, (300, n))).to(cuda)
+    eq = pack.pack_eq(subjects, 31)
+    before = mp.LAUNCHES
+    got = mp.myers_global(eq, q, read_len=n, factor=factor)
+    torch.cuda.synchronize()
+    assert mp.LAUNCHES == before + 1
+    assert torch.equal(got, mp.myers_global_ref(eq, q, read_len=n, factor=factor))
+    full = sg.myers_semiglobal(pack.pack_eq(subjects, 32), q, read_len=n, factor=factor,
+                               is_global=True)
+    assert torch.equal(got, full)
+
+
+@pytest.mark.parametrize("merge", [False, True])
+def test_mesh_on_repeated_card_matches_one_device(cuda, merge):
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(codes(rng, (4, 60))).to(cuda)
+    eq = pack.pack_eq(torch.from_numpy(codes(rng, (1000, 150))).to(cuda), 31)
+    mesh = mesh_mod.make_mesh([cuda] * 4, query_shards=2)
+    got = mesh_mod.myers_global_sharded(eq, q, mesh, read_len=150, merge=merge)
+    want = mp.myers_global(eq, q, read_len=150).cpu().numpy()
+    np.testing.assert_array_equal(np.asarray(got.cpu() if merge else got), want)
+
+
+@pytest.mark.parametrize("scoring,packed", [
+    (Scoring(0, -1, -1), True), (Scoring(2, -3, -5), True), (Scoring(2, -3, -5), False)])
+def test_engine_on_two_shards_of_the_card(bitpal_cuda, scoring, packed):
+    rng = np.random.default_rng(9)
+    q = codes(rng, (3, 90))
+    s = codes(rng, (2048, 90)).astype(np.uint8)
+    config = PipelineConfig(bitpal_packed=packed)
+    one = np.asarray(Engine(normalize(scoring), config, bitpal_cuda).scores(q, s))
+    two = Engine(normalize(scoring), config, bitpal_cuda, devices=[bitpal_cuda] * 2)
+    np.testing.assert_array_equal(np.asarray(two.scores(q, s)), one)
+
+
+@pytest.mark.parametrize("m,n,k", [(150, 150, 8), (150, 150, 16), (150, 148, 8), (55, 20, 40)])
+def test_banded_engine_on_two_shards_of_the_card(cuda, m, n, k):
+    q, s = filter_mix_dataset(np.random.default_rng(k), 3, 1000, max(m, n))
+    s = s[:, :n].astype(np.uint8)
+    one = np.asarray(BandedEngine(k, PipelineConfig(), cuda).scores(q[:, :m], s))
+    two = BandedEngine(k, PipelineConfig(), cuda, devices=[cuda] * 2)
+    np.testing.assert_array_equal(np.asarray(two.scores(q[:, :m], s)), one)
+
+
+@pytest.mark.parametrize("name,shape,library", [
+    ("myers_semiglobal", {"W": 16}, None), ("myers_global", {"W": 17}, None),
+    ("banded_stream", {}, None), ("banded_stream_dual", {}, None), ("banded", {}, None),
+    ("banded_stream_packed", {"n_sub": 3}, None), ("int_peak", {"chains": 16}, None),
+    ("bitpal_packed", {"bits": 31, "W": 17}, "bitpal_packed"),
+    ("bitpal", {"bits": 32, "W": 0}, "bitpal"),
+])
+def test_sass_column_loop_of_every_kernel(cuda, name, shape, library):
+    # the bound's instruction counts come from the built library's SASS
+    from bgsa_tpu_torch.ops import build
+
+    lib = build.load() if library is None else build.load_scheme(library, 2, -3, -5)
+    text = roofline.sass_text(lib.path)
+    if text is None:
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    spec = roofline.SASS_SPECS[name]
+    ins = roofline.find_function(roofline.sass_functions(text), spec.function.format(**shape))
+    per = roofline.column_instructions(ins, spec, inner_trips=16 if shape.get("W") == 0 else 0)
+    assert 0 < per["alu"] <= per["issue"] and 0 <= per["fma"] <= per["issue"]
+
+
+@pytest.mark.parametrize("chains", [1, 8, 16, 32])
+def test_int_peak_matches_plain(cuda, chains):
+    x = roofline.peak_inputs(chains, 3000, cuda)
+    before = roofline.LAUNCHES
+    got = roofline.int_peak(x, steps=3, unroll=7)  # 21 iterations: main loop and remainder
+    torch.cuda.synchronize()
+    assert roofline.LAUNCHES == before + 1
+    assert torch.equal(got, roofline.int_peak_ref(x, steps=3, unroll=7))

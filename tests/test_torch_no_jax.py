@@ -16,7 +16,7 @@ assert scores.tolist() == [0, -1, -2, -3], scores
 scores = bgsa_tpu_torch.align("ACGTACGT", ["ACGTACGT", "ACGTACGA", "TTTTTTTT"], k=2,
                               device="cpu")
 assert scores.tolist() == [0, 1, 127], scores
-from bgsa_tpu.schemes import Scoring
+from bgsa_tpu_torch import Scoring
 for packed in (True, False):  # the packed and non-packed BitPAl kernels
     config = bgsa_tpu_torch.pipeline.PipelineConfig(bitpal_packed=packed)
     scores = bgsa_tpu_torch.align("ACGT", ["ACGT", "ACGA", "TTTT"], scoring=Scoring(2, -3, -5),

@@ -14,11 +14,13 @@ import torch
 from bgsa_tpu import oracle
 from bgsa_tpu import banded_pipeline as jax_banded_pipeline
 from bgsa_tpu import pipeline as jax_pipeline
+from bgsa_tpu import schemes as jax_schemes
 from bgsa_tpu.io import result as result_io
-from bgsa_tpu.pipeline import PipelineConfig
-from bgsa_tpu.schemes import Mode, Scoring, normalize
+from bgsa_tpu.pipeline import PipelineConfig as JaxConfig
 from bgsa_tpu_torch import align, cli
 from bgsa_tpu_torch import pipeline as port
+from bgsa_tpu_torch.pipeline import PipelineConfig
+from bgsa_tpu_torch.schemes import Mode, Scoring, normalize
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -49,8 +51,8 @@ def test_run_alignment_matches_jax_and_golden(tmp_path, inputs, cfg, mode, golde
     got, want = str(tmp_path / "port.bin"), str(tmp_path / "jax.bin")
     stats = port.run_alignment(*inputs, got, mode=mode, config=PipelineConfig(**cfg),
                                device="cpu")
-    jax_pipeline.run_alignment(*inputs, want, mode=mode,
-                               config=PipelineConfig(backend="xla", **cfg))
+    jax_pipeline.run_alignment(*inputs, want, mode=jax_schemes.Mode(mode.value),
+                               config=JaxConfig(backend="xla", **cfg))
     assert read(got) == read(want)
     assert read(got + ".info") == read(want + ".info")
     assert stats.subject_count == (128 if inputs is SAMPLE else 2000)
@@ -90,8 +92,8 @@ def test_cli_semi_global_stats_json(tmp_path):
                            "--bucket-size", "40000", "--stats-json", stats,
                            "--device", "cpu", "--quiet"]) == 0
     want = str(tmp_path / "jax.bin")
-    jax_pipeline.run_alignment(*MULTI, want, mode=Mode.SEMI_GLOBAL,
-                               config=PipelineConfig(backend="xla", bucket_size=40000))
+    jax_pipeline.run_alignment(*MULTI, want, mode=jax_schemes.Mode.SEMI_GLOBAL,
+                               config=JaxConfig(backend="xla", bucket_size=40000))
     assert read(res) == read(want)
     assert '"subject_count": 2000' in read(stats).decode()
 
@@ -111,17 +113,20 @@ def test_cli_rejects_unported_flags(tmp_path, capsys, flags):
     if flags[0] == "-k":  # the banded filter is ported: it runs, as bgsa-align's does
         assert rc == 0
         want = str(tmp_path / "jax.bin")
-        jax_banded_pipeline.run_banded(*SAMPLE, want, 8, PipelineConfig(backend="xla"))
+        jax_banded_pipeline.run_banded(*SAMPLE, want, 8, JaxConfig(backend="xla"))
         assert read(res) == read(want) and read(res + ".info") == read(want + ".info")
         return
     if flags[0] == "-M":  # BitPAl is ported: it runs, as bgsa-align's does
         assert rc == 0
         want = str(tmp_path / "jax.bin")
-        jax_pipeline.run_alignment(*SAMPLE, want, scoring=Scoring(2, -3, -5),
-                                   config=PipelineConfig(backend="xla"))
+        jax_pipeline.run_alignment(*SAMPLE, want, scoring=jax_schemes.Scoring(2, -3, -5),
+                                   config=JaxConfig(backend="xla"))
         assert read(res) == read(want) and read(res + ".info") == read(want + ".info")
         return
     assert rc == 1
+    if flags[0] == "--shards":  # ported: refused as bgsa-align refuses it (one CPU device)
+        assert "--shards 2 exceeds the 1 visible local device(s)" in capsys.readouterr().err
+        return
     assert "not ported yet" in capsys.readouterr().err
     assert not os.path.exists(res)
 
@@ -132,8 +137,8 @@ def test_cli_unit_scoring_flags_run(tmp_path):
     assert cli.align_main(["-q", SAMPLE[0], "-d", SAMPLE[1], "-f", res, "-M", "0", "-I", "2",
                            "-G", "2", "--device", "cpu", "--quiet"]) == 0
     ref = str(tmp_path / "ref.bin")
-    jax_pipeline.run_alignment(*SAMPLE, ref, scoring=Scoring(0, 2, 2),
-                               config=PipelineConfig(backend="xla"))
+    jax_pipeline.run_alignment(*SAMPLE, ref, scoring=jax_schemes.Scoring(0, 2, 2),
+                               config=JaxConfig(backend="xla"))
     assert read(res) == read(ref)
 
 
@@ -157,7 +162,7 @@ def test_api_multi_query_matches_oracle(mode):
     s = rng.integers(0, 5, size=(5, 40))
     got = align(q, s, mode=mode, device="cpu")
     assert got.shape == (3, 5) and got.dtype == np.int16
-    want = np.stack([-oracle.edit_distances(qi, s, mode) for qi in q])
+    want = np.stack([-oracle.edit_distances(qi, s, jax_schemes.Mode(mode.value)) for qi in q])
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(align(q[1], s, mode=mode, device="cpu"), want[1])
 
@@ -173,7 +178,8 @@ def test_api_rejects_unported_paths():
 
 def test_engine_rejects_unported_configurations():
     myers = normalize(Scoring(0, -1, -1))
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
+    # local sharding is ported: two shards need two local devices (the CPU is one)
+    with pytest.raises(ValueError, match="exceeds the 1 visible local device"):
         port.Engine(myers, PipelineConfig(local_shards=2), "cpu")
     # BitPAl is ported: the engine takes the packed kernel in 31-bit words
     bitpal = port.Engine(normalize(Scoring(2, -3, -5)), PipelineConfig(), "cpu")
