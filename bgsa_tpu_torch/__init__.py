@@ -12,7 +12,11 @@ packed and non-packed, ``-M/-I/-G``, ``align(scoring=...)``), global and
 semi-global, and the banded filter (``-k``, ``align(k=...)``), through the
 bucketed file pipeline (``bgsa-torch-align``) and ``align()``, on one
 device or split over local devices (``--shards``); the 31-bit
-reference-layout Myers kernel and its device mesh (``parallel.mesh``).
+reference-layout Myers kernel and its device mesh (``parallel.mesh``); the
+repository's tools that run kernels: ``scripts.gpu_parity`` (every kernel
+against the oracles), the paired-query banded experiments
+(``scripts.exp_banded_pair``, ``scripts.exp_banded_packed_pair``) and the
+kernel-print fixture (``debug``).
 """
 
 from .api import align

@@ -136,10 +136,6 @@ banded_peq_kernel(const uint32_t* __restrict__ init_lo, const uint32_t* __restri
   }
 }
 
-dim3 grid_for(int S, int Q) {
-  return dim3((S + kThreads - 1) / kThreads, Q < kMaxGridY ? Q : kMaxGridY);
-}
-
 }  // namespace
 
 extern "C" {

@@ -1,4 +1,5 @@
-// Shared pieces of the banded Myers kernels (banded.cu).
+// Shared pieces of the banded Myers kernels (banded.cu, banded_pair.cu, and
+// through banded_packed_common.cuh the packed kernels).
 //
 // The reference's band register is one 64-bit word; the TPU kernels emulate
 // it with (lo, hi) uint32 pairs (bgsa_tpu/ops/banded.py: _add64, _shr1).
@@ -18,6 +19,12 @@ constexpr int kBatchCols = 32;  // early-exit granularity (columns)
 constexpr int kMaxGridY = 65535;
 constexpr int kMaxError = 127;  // "over budget" (banded_ref.MAX_ERROR)
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
+
+// One thread per subject (x) and row of the output (y), the rows walked
+// with a stride where they exceed the grid's y limit.
+inline dim3 grid_for(int S, int rows) {
+  return dim3((S + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
+}
 
 // Bits 0..band_down set. band_down == 63 is the full register: (1 << 64) - 1
 // is undefined in C++, so it is its own case (banded.py branches the same

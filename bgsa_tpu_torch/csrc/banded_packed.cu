@@ -36,33 +36,24 @@
 // The launch uses the caller's stream, allocates nothing, and the C entry
 // point returns cudaGetLastError().
 
-#include "banded_common.cuh"
+#include "banded_packed_common.cuh"
 
 namespace {
 
 using namespace bgsa_banded;
 
-constexpr int kMaxSub = 32;  // pitch >= 2
-
-struct PackedConsts {
-  uint64_t band;  // bits 0..band_down of every field
-  uint64_t xsm;   // bits 0..band_down-1 of every field (Xs keeps the band)
-  uint64_t ones;  // bit 0 of every field (match counters)
-  uint64_t tops;  // the guard bit of every field (dead flags, compare)
-};
-
-// Set dead (the field's top bit) where matches < thr (err > max_err).
-__device__ __forceinline__ void latch(uint64_t& dead, uint64_t matches, int thr,
-                                      const PackedConsts& pc) {
-  const uint64_t t = static_cast<uint64_t>(max(thr, 0)) * pc.ones;  // thr in every field
-  const uint64_t ge = (matches | pc.tops) - t;  // a field's top bit survives iff matches >= thr
-  dead |= ~ge & pc.tops;
-}
+// A full SM's 2048 threads in blocks of kThreads.
+constexpr int kFullSmBlocks = 2048 / kThreads;
 
 // streams: (n_sub, 5, W, S_sub) uint32; queries: (Q, m) uint8;
 // out: (Q, n_sub * S_sub) int32. NSUB > 0 fixes n_sub at compile time.
+// Launch bounds: with none beyond kThreads, ptxas compiles every instance to
+// 32 registers (a full SM) but the two-field one to 40 registers with a
+// 4-byte spill; that one asks for at least one block per SM and spills
+// nothing (58 registers, 8 blocks an SM instead of 12; on an H100 no slower,
+// PERF.md), the others keep their 32 registers.
 template <int NSUB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, NSUB == 2 ? 1 : kFullSmBlocks)
 banded_packed_kernel(const uint32_t* __restrict__ streams, const uint8_t* __restrict__ queries,
                      int32_t* __restrict__ out, int Q, int m, int W, int S_sub, int n_sub_rt,
                      int k, int h, int band_down, int last_chk, PackedConsts pc) {
@@ -77,32 +68,13 @@ banded_packed_kernel(const uint32_t* __restrict__ streams, const uint8_t* __rest
   const int nb = max(0, (last_chk - head_end) / kBatchCols);
   for (int q = blockIdx.y; q < Q; q += gridDim.y) {
     const uint8_t* const qrow = queries + static_cast<size_t>(q) * m;
-    uint64_t vp = 0, vn = 0, matches = 0;
-    uint64_t dead = active ? 0ull : pc.tops;
+    PackedState st;
+    st.dead = active ? 0ull : pc.tops;
 
     auto column = [&](int t) {
-      const int c = __ldg(qrow + t);
-      uint64_t eq = 0;
-      if (c < kChars) {
-        const int w = min(t >> 5, W - 2), b = t & 31;
-        const uint32_t* p = base + c * plane + static_cast<size_t>(w) * S_sub;
-#pragma unroll
-        for (int j = 0; j < (NSUB > 0 ? NSUB : kMaxSub); ++j) {
-          if (j < n_sub) {
-            const uint32_t* pj = p + j * kChars * plane;
-            const uint32_t win = __funnelshift_r(__ldg(pj), __ldg(pj + S_sub), b) & wmask;
-            eq |= static_cast<uint64_t>(win) << (pitch * j);
-          }
-        }
-      }
-      const uint64_t x = eq | vn;
-      const uint64_t d0 = (((x & vp) + vp) ^ vp) | x;
-      const uint64_t hn = d0 & vp;
-      const uint64_t hp = ~(d0 | vp) | vn;
-      const uint64_t xs = ((d0 & pc.band) >> 1) & pc.xsm;
-      vn = xs & hp;
-      vp = (~(hp | xs) | hn) & pc.band;
-      if (t >= k) matches += d0 & pc.ones;
+      const uint64_t eq = packed_window<NSUB>(base, plane, S_sub, W, n_sub, pitch, wmask,
+                                              __ldg(qrow + t), t);
+      packed_update(st, eq, t >= k, pc);
     };
 
     for (int t = 0; t < head_end; ++t) column(t);  // unscored head
@@ -110,28 +82,18 @@ banded_packed_kernel(const uint32_t* __restrict__ streams, const uint8_t* __rest
     for (int i = 0; i < nb && !all_dead; ++i) {
       const int t0 = head_end + i * kBatchCols;
       for (int t = t0; t < t0 + kBatchCols; ++t) column(t);
-      latch(dead, matches, (i + 1) * kBatchCols - h - 1, pc);  // pseudo-checkpoint
-      all_dead = __all_sync(kFullWarp, dead == pc.tops);
+      latch(st.dead, st.matches, (i + 1) * kBatchCols - h - 1, pc);  // pseudo-checkpoint
+      all_dead = __all_sync(kFullWarp, st.dead == pc.tops);
     }
     if (!all_dead) {
       for (int t = head_end + nb * kBatchCols; t < m; ++t) {  // tail holds last_chk
         column(t);
-        if (t + 1 == last_chk) latch(dead, matches, last_chk - k - h - 1, pc);
+        if (t + 1 == last_chk) latch(st.dead, st.matches, last_chk - k - h - 1, pc);
       }
     }
     if (!active) continue;
-    int32_t* const orow = out + static_cast<size_t>(q) * n_sub * S_sub + s;
-    const int charged = max(m, k);
-    for (int j = 0; j < n_sub; ++j) {
-      const int o = pitch * j;
-      const int err = charged - static_cast<int>((matches >> o) & ((1ull << pitch) - 1ull));
-      int cur = err, mn = err;
-      for (int i = 0; i <= h; ++i) {
-        cur += static_cast<int>((vp >> (o + i)) & 1ull) - static_cast<int>((vn >> (o + i)) & 1ull);
-        mn = min(mn, cur);
-      }
-      orow[static_cast<size_t>(j) * S_sub] = ((dead >> (o + pitch - 1)) & 1ull) ? kMaxError : mn;
-    }
+    packed_epilogue(st, out + static_cast<size_t>(q) * n_sub * S_sub + s, S_sub, n_sub, pitch, h,
+                    max(m, k));
   }
 }
 
@@ -150,20 +112,11 @@ extern "C" {
 int bgsa_banded_packed(const void* streams, const void* queries, void* out, int Q, int m, int W,
                        int S_sub, int n_sub, int k, int h, int band_down, int last_chk,
                        void* cuda_stream) {
-  const int pitch = band_down + 2;
-  if (Q <= 0 || S_sub <= 0 || W < 3 || m < 0 || band_down < 0 || band_down > 30 || n_sub < 2 ||
-      n_sub * pitch > 64) {
+  if (!packed_args_ok(Q, m, W, S_sub, n_sub, band_down)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  PackedConsts pc{0, 0, 0, 0};
-  for (int j = 0; j < n_sub; ++j) {
-    const int o = pitch * j;
-    pc.band |= ((1ull << (band_down + 1)) - 1ull) << o;
-    pc.xsm |= ((1ull << band_down) - 1ull) << o;
-    pc.ones |= 1ull << o;
-    pc.tops |= 1ull << (o + pitch - 1);
-  }
-  const dim3 grid((S_sub + kThreads - 1) / kThreads, Q < kMaxGridY ? Q : kMaxGridY);
+  const PackedConsts pc = packed_consts(n_sub, band_down);
+  const dim3 grid = grid_for(S_sub, Q);
   const auto* st = static_cast<const uint32_t*>(streams);
   const auto* qs = static_cast<const uint8_t*>(queries);
   auto* o = static_cast<int32_t*>(out);

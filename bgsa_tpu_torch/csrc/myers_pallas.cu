@@ -83,8 +83,11 @@ __device__ __forceinline__ void stage_query(uint8_t* qs, const uint8_t* __restri
   __syncthreads();
 }
 
+// At least one block per SM is all the launch bounds ask: with no minimum,
+// ptxas gave MAXW = 17 48 registers, a 16-byte stack frame and 20 bytes of
+// spill stores in the column loop (as bitpal_common.cuh found for BitPAl).
 template <int MAXW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 global31_regs(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ queries,
               int32_t* __restrict__ out, int Q, int m, int W, int S, int read_len,
               int factor) {

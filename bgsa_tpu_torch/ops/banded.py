@@ -125,20 +125,24 @@ def _epilogue(vp, vn, err, dead, h):
     return torch.where(dead, MAX_ERROR, mn).to(torch.int32)
 
 
-def _scan(queries, S, window_at, *, q_len, s_len, k, live=None):
+def _scan(queries, S, window_at, *, q_len, s_len, k, live=None, threads=None, latch=True):
     """Run the band over the columns for (Q, S) pairs: window_at(c, t) gives
     column t's Eq window (Q, S) int64 for the query characters c (Q,).
     ``live``, a list, receives the count of pairs not yet over budget before
-    each column (the work the reference's checkpoints leave to do)."""
+    each column (the work the reference's checkpoints leave to do), or with
+    ``threads`` (the (Q, S) over-budget mask -> a kernel's threads' masks,
+    a thread being over budget when all its pairs are) the count of such
+    threads. ``latch`` False: no checkpoint latches a pair (no 127)."""
     h, _, max_err = geometry(q_len, s_len, k)
-    chk = chk_array(q_len, s_len, k)
+    chk = chk_array(q_len, s_len, k) if latch else np.zeros(q_len, np.int32)
     q = queries.long()
     vp = vn = torch.zeros((q.shape[0], S), dtype=torch.int64, device=q.device)
     err = torch.full_like(vp, k)
     dead = torch.zeros_like(vp, dtype=torch.bool)
     for t in range(q_len):
         if live is not None:
-            live.append(int(dead.numel() - dead.sum()))
+            d = dead if threads is None else threads(dead)
+            live.append(int(d.numel() - d.sum()))
         vp, vn, d0 = _band_update(window_at(q[:, t], t), vp, vn)
         if t >= k:
             err = err + 1 - (d0 & 1)
@@ -147,15 +151,22 @@ def _scan(queries, S, window_at, *, q_len, s_len, k, live=None):
     return _epilogue(vp, vn, err, dead, h)
 
 
-def banded_stream_ref(stream, queries, *, q_len: int, s_len: int, k: int, live=None):
-    """Plain torch version. stream (5, W, S) int32, queries (Q, m) -> (Q, S)
-    int32. ``live``: see ``_scan``."""
+def stream_window_at(stream, q_len: int, s_len: int, k: int):
+    """window_at(c, t) of ``_scan`` for a (5, W, S) int32 bit-stream: the
+    funnel window masked to the band."""
     _, band_down, _ = geometry(q_len, s_len, k)
     st = _padded_stream(stream, q_len)
     mask = const64((1 << (band_down + 1)) - 1)
+    return lambda c, t: _window(st, c, t) & mask
+
+
+def banded_stream_ref(stream, queries, *, q_len: int, s_len: int, k: int, live=None,
+                      threads=None):
+    """Plain torch version. stream (5, W, S) int32, queries (Q, m) -> (Q, S)
+    int32. ``live``, ``threads``: see ``_scan``."""
     return _scan(queries.to(stream.device), stream.shape[-1],
-                 lambda c, t: _window(st, c, t) & mask, q_len=q_len, s_len=s_len, k=k,
-                 live=live)
+                 stream_window_at(stream, q_len, s_len, k), q_len=q_len, s_len=s_len, k=k,
+                 live=live, threads=threads)
 
 
 def banded_stream_dual_ref(streams, queries, *, q_len: int, s_len: int, k: int):
@@ -215,6 +226,20 @@ def _device_of(x, name: str) -> str:
     return x.device.type
 
 
+def check_stream_args(stream, queries, q_len: int, s_len: int, k: int, name: str) -> str:
+    """Check a single-stream kernel's inputs as ``banded_stream`` does; the
+    stream's device type."""
+    _check_words(stream, "(5, W, S)", 3, "stream")
+    _check_queries(queries, q_len)
+    h, _, _ = geometry(q_len, s_len, k)
+    if h < k:
+        raise ValueError(
+            f"{name} requires s_len >= q_len (the preload would exceed "
+            "the band); use banded() for shorter subjects"
+        )
+    return _device_of(stream, name)
+
+
 def _upload_chk(q_len: int, s_len: int, k: int, device) -> torch.Tensor:
     """The checkpoint flags as a (q_len,) uint8 device tensor, uploaded from
     pinned memory without blocking the host."""
@@ -256,15 +281,7 @@ def _launch_stream(name, stream, queries, *, q_len, s_len, k, dual):
 def banded_stream(stream, queries, *, q_len: int, s_len: int, k: int):
     """(5, W, S) int32 Eq bit-stream x (Q, q_len) codes -> (Q, S) int32
     error counts (127 = over budget). Needs s_len >= q_len."""
-    _check_words(stream, "(5, W, S)", 3, "stream")
-    _check_queries(queries, q_len)
-    h, _, _ = geometry(q_len, s_len, k)
-    if h < k:
-        raise ValueError(
-            "banded_stream requires s_len >= q_len (the preload would exceed "
-            "the band); use banded() for shorter subjects"
-        )
-    if _device_of(stream, "banded_stream") == "cpu":
+    if check_stream_args(stream, queries, q_len, s_len, k, "banded_stream") == "cpu":
         return banded_stream_ref(stream, queries, q_len=q_len, s_len=s_len, k=k)
     return _launch_stream("banded_stream", stream, queries, q_len=q_len, s_len=s_len, k=k,
                           dual=False)

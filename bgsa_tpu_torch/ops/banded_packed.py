@@ -90,7 +90,7 @@ def pack_packed_streams(codes: torch.Tensor, threshold: int, query_len: int,
     ])
 
 
-def _check_streams(streams, q_len, s_len, k) -> int:
+def check_streams(streams, q_len, s_len, k) -> int:
     n_sub = packed_subbands(q_len, s_len, k)
     if streams.dim() != 4 or streams.shape[1] != CHAR_NUM or streams.dtype != torch.int32:
         raise ValueError(f"streams must be (n_sub, 5, W, S_sub) int32, got "
@@ -106,7 +106,7 @@ def _check_streams(streams, q_len, s_len, k) -> int:
 def banded_stream_packed_ref(streams, queries, *, q_len: int, s_len: int, k: int):
     """Plain torch version. streams (n_sub, 5, W, S_sub) int32, queries
     (Q, m) -> (Q, n_sub * S_sub) int32 in original subject order."""
-    n_sub = _check_streams(streams, q_len, s_len, k)
+    n_sub = check_streams(streams, q_len, s_len, k)
     h, band_down, _, pitch, _, band, xsm, ones, tops = consts(q_len, s_len, k)
     ones_u = ones
     band, xsm, ones, tops = map(const64, (band, xsm, ones, tops))
@@ -150,10 +150,20 @@ def banded_stream_packed(streams, queries, *, q_len: int, s_len: int, k: int):
     x (Q, q_len) codes -> (Q, n_sub * S_sub) int32 error counts (127 = over
     budget), in original subject order."""
     global LAUNCHES
-    n_sub = _check_streams(streams, q_len, s_len, k)
+    n_sub = check_streams(streams, q_len, s_len, k)
     _check_queries(queries, q_len)
     if _device_of(streams, "banded_stream_packed") == "cpu":
         return banded_stream_packed_ref(streams, queries, q_len=q_len, s_len=s_len, k=k)
+    out = launch_packed("banded_stream_packed", "bgsa_banded_packed", streams, queries, n_sub,
+                        q_len=q_len, s_len=s_len, k=k)
+    LAUNCHES += 1
+    return out
+
+
+def launch_packed(name: str, fn_name: str, streams, queries, n_sub: int, *, q_len: int,
+                  s_len: int, k: int) -> torch.Tensor:
+    """Launch the packed entry point ``fn_name`` (``bgsa_banded_packed``'s
+    arguments) on CUDA tensors -> (Q, n_sub * S_sub) int32."""
     h, band_down, _ = geometry(q_len, s_len, k)
     W, S_sub = streams.shape[2:]
     Q = queries.shape[0]
@@ -165,6 +175,5 @@ def banded_stream_packed(streams, queries, *, q_len: int, s_len: int, k: int):
     q = queries.to(device=dev, dtype=torch.uint8).contiguous()
     args = (streams.data_ptr(), q.data_ptr(), out.data_ptr(), Q, q_len, W, S_sub, n_sub,
             k, h, band_down, last_checkpoint(q_len, s_len, k))
-    launch("banded_stream_packed", "bgsa_banded_packed", out, args)
-    LAUNCHES += 1
+    launch(name, fn_name, out, args)
     return out

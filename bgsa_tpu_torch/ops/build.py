@@ -28,6 +28,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -36,7 +37,7 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "bgsa_tpu_torch")
 SOURCES = ("myers_semiglobal.cu", "myers_pallas.cu", "banded.cu", "banded_packed.cu",
-           "int_peak.cu")
+           "int_peak.cu", "banded_pair.cu", "banded_packed_pair.cu", "kprint_probe.cu")
 # built one library per scheme (load_scheme); each exports bgsa_<kernel>
 SCHEME_SOURCES = ("bitpal.cu", "bitpal_packed.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -55,7 +56,7 @@ class Kernels:
 
     lib: ctypes.CDLL
     path: str
-    log: str  # nvcc's stderr (ptxas register and spill report); "" when cached
+    log: str  # nvcc's stderr (ptxas register and spill report), read back when cached
     build_seconds: float  # 0.0 when the cached library was loaded
     reg_words: int  # largest W whose kernel state stays in registers
 
@@ -110,14 +111,16 @@ def compile_library(sources, out_dir: str, *, stem: str = "bgsa_kernels", tag: s
     """Compile ``sources`` into ``out_dir``; returns (path, nvcc stderr, seconds).
 
     The file name is ``lib<stem>-<source_digest>[-<tag>].so``, ``tag``
-    naming what the ``defines`` (``-D`` macros) select; an existing file of
-    that name is reused (stderr "", 0 seconds). Raises RuntimeError on a
-    failed build.
+    naming what the ``defines`` (``-D`` macros) select, and nvcc's stderr
+    is written beside it as ``<name>.log``; an existing library with its log
+    is reused (the saved stderr, 0 seconds). Raises RuntimeError on a failed
+    build.
     """
     name = f"lib{stem}-{source_digest(sources)}{'-' + tag if tag else ''}.so"
     path = os.path.join(out_dir, name)
-    if os.path.exists(path):
-        return path, "", 0.0
+    if os.path.exists(path) and os.path.exists(path + ".log"):
+        with open(path + ".log") as f:
+            return path, f.read(), 0.0
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
@@ -128,9 +131,12 @@ def compile_library(sources, out_dir: str, *, stem: str = "bgsa_kernels", tag: s
         log = _run_all([[nvcc, *COMPILE_FLAGS, *macros, "-c", "-o", obj, src]
                         for obj, src in zip(objs, sources)])
         log += _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
+        with open(f"{tmp}.log", "w") as f:
+            f.write(log)
+        os.replace(f"{tmp}.log", path + ".log")
         os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     finally:
-        for f in (*objs, tmp):
+        for f in (*objs, tmp, f"{tmp}.log"):
             if os.path.exists(f):
                 os.unlink(f)
     return path, log, time.perf_counter() - t0
@@ -147,11 +153,25 @@ _SIGNATURES = {
     "bgsa_myers_global_reg_words": [],
     "bgsa_int_peak": [_ptr] * 2 + [_i32] * 3 + [_ptr],
     "bgsa_int_peak_supports": [_i32],
+    "bgsa_banded_stream_pair": [_ptr] * 4 + [_i32] * 9 + [_ptr],
+    "bgsa_banded_probe": [_ptr] * 3 + [_i32] * 8 + [_ptr],
+    "bgsa_banded_packed_pair": [_ptr] * 3 + [_i32] * 9 + [_ptr],
+    "bgsa_kprint_probe": [_ptr] * 2 + [_i32] + [_ptr],
 }
 # every scheme library: (eq, queries, out, scratch, Q, m, W, S, read_len,
 # factor, semi_global, word_bits, stream)
 _SCHEME_SIGNATURE = [_ptr] * 4 + [_i32] * 8 + [_ptr]
 _COMMON = {"bgsa_reg_words": [], "bgsa_error_string": [_i32]}
+
+
+_FRAME = re.compile(r"Function properties for (\S+)\s+(\d+) bytes stack frame, "
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_frames(log: str) -> dict:
+    """{function: (stack frame, spill store, spill load bytes)} of the
+    ``-Xptxas -v`` report in a library's log."""
+    return {m.group(1): tuple(int(m.group(i)) for i in (2, 3, 4)) for m in _FRAME.finditer(log)}
 
 
 def _declare(lib, signatures) -> None:

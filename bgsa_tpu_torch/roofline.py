@@ -9,13 +9,15 @@ operation counts become constants, because the port cannot import jax.
 * The bound (``column_instructions``, ``instruction_bound``, ``bound``):
   ``cuobjdump -sass`` of the built library gives the instructions of the
   kernel instance that ran; the column loop is the innermost loop that loads
-  the query code (``SassSpec.anchor``), and one column costs the
-  instructions of one trip through it over the columns that trip holds. A
-  trip counts every instruction where every branch in the loop falls through
-  on the timed inputs (the word kernels at W equal to the instance's word
-  count: the per-word guards), and otherwise the shortest path through the
-  loop with only the query-code checks falling through (the banded kernels
-  on inputs without N). Each count goes to the pipes it occupies (``pipe``):
+  the query code (``SassSpec.anchor``), or in a kernel that loads none the
+  largest innermost loop, pinned at PEAK_UNROLL columns a trip, and one
+  column costs the instructions of one trip through it over the columns
+  that trip holds. A trip counts every instruction where every branch in
+  the loop falls through on the timed inputs (the word kernels at W equal
+  to the instance's word count: the per-word guards), and otherwise the
+  shortest path through the loop with only the query-code checks falling
+  through (the banded kernels on inputs without N). Each count goes to the
+  pipes it occupies (``pipe``):
   the integer ALU pipe and the FMA pipe (IMAD) each retire 64 int32 results
   per clock per SM, and the SM issues 4 warp-instructions (128 thread
   instructions) per clock (CUDA C++ Programming Guide, arithmetic instruction
@@ -26,7 +28,11 @@ operation counts become constants, because the port cannot import jax.
   card's memory rate. For the banded kernels the columns needed are the live
   (lane, column) pairs: the columns each pair runs before the reference's
   checkpoints latch it over budget (``banded_ref``), counted by the plain
-  versions (``ops.banded.banded_stream_ref(..., live=...)``).
+  versions (``ops.banded.banded_stream_ref(..., live=...)``); for a kernel
+  whose thread carries several pairs (the paired-query kernels), the
+  thread's columns, which run until all of its pairs are over budget
+  (``threads=``). The banded probes have no early exit: every column of
+  every pair.
 * ``WORD_OPS``, ``BANDED_OPS``: elementwise ALU operations of each kernel's
   JAX column function, counted from its jaxpr the way
   ``scripts/roofline.py`` counts them (``count_alu``). For the word-parallel
@@ -57,7 +63,9 @@ import torch
 
 # ops of one chain iteration of the peak kernel: add, shr, xor, or, shl, and, not
 PEAK_OPS_PER_CHAIN_ITER = 7
-PEAK_UNROLL = 16  # csrc/int_peak.cu's kUnroll: chain steps in one trip of its main loop
+# steps (or columns) in one trip of the main loop of a kernel that loads no
+# query code: csrc/int_peak.cu's kUnroll and csrc/banded_pair.cu's kProbeUnroll
+PEAK_UNROLL = 16
 INT32_PER_CLOCK_PER_SM = 64
 MEMORY_BYTES_PER_S = 3.35e12  # H100 SXM, 80 GB HBM3 (NVIDIA's data sheet)
 
@@ -153,7 +161,9 @@ class SassSpec:
     function: a substring of the instance's mangled name, formatted with the
       shape (``W``, ``bits``, ``n_sub``, ``chains``);
     anchor: the opcode that loads a column's query code, ``anchors`` times a
-      column (None: the peak kernel, whose main loop holds PEAK_UNROLL steps);
+      column (None: a kernel that loads none, whose largest innermost loop
+      holds PEAK_UNROLL columns or chain steps: the peak kernel, and the
+      banded probes that read no query code);
     every: every branch in the loop falls through on the timed inputs.
     """
 
@@ -176,6 +186,14 @@ SASS_SPECS = {
     "banded": SassSpec("banded_peq_kernel", _CODE, 2, every=False),
     "banded_stream_packed": SassSpec("banded_packed_kernelILi{n_sub}E", _CODE, 1, every=False),
     "int_peak": SassSpec("int_peak_kernelILi{chains}E", None),
+    # two query codes and the checkpoint flag a pair column
+    "banded_stream_pair": SassSpec("banded_stream_pair_kernel", _CODE, 3, every=False),
+    # the probes: no early exit; static_c and noload load no query code, and
+    # their column loop is pinned at PEAK_UNROLL columns a trip
+    "banded_probe_full": SassSpec("banded_probe_kernelILi0E", _CODE, 1, every=False),
+    "banded_probe_static_c": SassSpec("banded_probe_kernelILi1E", None),
+    "banded_probe_noload": SassSpec("banded_probe_kernelILi2E", None),
+    "banded_packed_pair": SassSpec("banded_packed_pair_kernelILi{n_sub}E", _CODE, 2, every=False),
 }
 
 
@@ -283,8 +301,10 @@ def column_instructions(ins, spec: SassSpec, *, inner_trips: int = 0) -> dict:
     def anchors(lo, hi):
         return sum(1 for x in ins[lo:hi + 1] if x[2] == spec.anchor)
 
-    if spec.anchor is None:  # the peak kernel: its largest loop is the main one
-        lo, hi = max(loops, key=lambda lh: lh[1] - lh[0])
+    if spec.anchor is None:  # the largest innermost loop holds PEAK_UNROLL columns
+        innermost = [(lo, hi) for lo, hi in loops
+                     if not any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops)]
+        lo, hi = max(innermost, key=lambda lh: lh[1] - lh[0])
         trip = _trip(ins[lo:hi + 1], True, None)
         return {p: v / PEAK_UNROLL for p, v in trip.items()}
     column_loops = [(lo, hi) for lo, hi in loops if anchors(lo, hi)

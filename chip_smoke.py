@@ -82,12 +82,36 @@ Phases; any failure exits non-zero, before the result line:
     rate (cuobjdump: the SASS per chain step) held to 105 % of SMs x 64 x
     ``clocks.max.sm``.
 
+17. the paired-query kernels (the stream pair, the packed pair) and the
+    three banded probes against their plain versions on the card, and each
+    pair against the shipping kernel it pairs (tolerance 0: integer
+    scores), over a geometry grid (several batches and a tail, the stream
+    band in the high word and at band_down == 63, packed n_sub 2, 3, 5 and 6,
+    a single-checkpoint query, a packed q_len < k corner) x garbage, near
+    and mix inputs x ragged subject counts;
+18. the two experiments (``bgsa_tpu_torch.scripts.exp_banded_pair`` and
+    ``exp_banded_packed_pair``, ``mix`` and ``garbage``) at their own
+    shapes: each gate, then every variant's rate from chains of 24 launches
+    timed by CUDA events, and each variant's kernel alone (its device time
+    in one more chain, from the profiler: the kernels line's times; the
+    path whose launches the kernels line counts);
+19. the kprint fixture in a child process (``python -m
+    bgsa_tpu_torch.debug``): the kernel's device printf reaches the child's
+    C stdout at a synchronisation, after lines Python printed later, so the
+    script reads the child's output instead of launching it: one ``probe 0``
+    line a launch and the plain call, and the output equal to its input;
+20. ``bgsa_tpu_torch.scripts.gpu_parity`` returns 0: every kernel family
+    against the oracles at unaligned shapes, packed n_sub 5 and 6 included.
+
 Kernel inputs are packed by ``BandedEngine.kernel_args``, as the engine
 packs them for its route. Every kernel library (the main one and one per
 BitPAl kernel and scheme) is built in phase 1, all nvcc processes started
-together. The script imports ``bgsa_tpu_torch``, torch, numpy and the
-standard library, and loads ``scripts/make_testdata.py`` by path; it fails
-if jax or any ``bgsa_tpu`` module was loaded.
+together, and phase 1 fails on a spill or a stack frame in any function of
+any library's ptxas report (kept beside a cached library), except the
+stack frame of a kernel that calls device printf: its argument buffer.
+The script imports ``bgsa_tpu_torch``, torch, numpy and the standard
+library, and loads ``scripts/make_testdata.py`` by path; it fails if jax
+or any ``bgsa_tpu`` module was loaded.
 
 The second-to-last line is a JSON object describing each kernel of the
 paths, with its bound: the kernel's own instructions per column (its SASS,
@@ -129,6 +153,23 @@ BANDED_KERNELS = {
 }
 
 
+# the paired-query experiments' kernels and the kprint fixture: name ->
+# (source, the TPU kernel it replaces)
+PAIR_KERNELS = {
+    "banded_stream_pair": ("bgsa_tpu_torch/csrc/banded_pair.cu", "scripts/exp_banded_pair.py:40"),
+    "banded_probe_full": ("bgsa_tpu_torch/csrc/banded_pair.cu", "scripts/exp_banded_pair.py:140"),
+    "banded_probe_static_c": ("bgsa_tpu_torch/csrc/banded_pair.cu",
+                              "scripts/exp_banded_pair.py:140"),
+    "banded_probe_noload": ("bgsa_tpu_torch/csrc/banded_pair.cu",
+                            "scripts/exp_banded_pair.py:140"),
+    "banded_packed_pair": ("bgsa_tpu_torch/csrc/banded_packed_pair.cu",
+                           "scripts/exp_banded_packed_pair.py:40"),
+}
+KPRINT = ("bgsa_tpu_torch/csrc/kprint_probe.cu", "tests/test_round2_fixes.py:90")
+PRINTF_KERNELS = ("kprint_probe_kernel",)  # kernels allowed a stack frame: device printf
+PARITY_SPECS = [("bitpal_packed", 1, -2, -3)]  # gpu_parity's 3-plane packed network
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -138,13 +179,14 @@ class Work:
     """What a timed kernel run had to do, for its bound: the library and the
     shape that pick its SASS instance (``roofline.SASS_SPECS``), the
     thread-columns the inputs need, the bytes it must move, the JAX source's
-    operation count, and the trips of a word loop nested in its column loop."""
+    operation count (None where none was taken), and the trips of a word
+    loop nested in its column loop."""
 
-    library: str
+    library: str | None
     shape: dict
     columns: float
     nbytes: int
-    jax_ops: float
+    jax_ops: float | None
     inner_trips: int = 0
 
 
@@ -178,30 +220,45 @@ def phase_environment():
     from bgsa_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    kernels, scheme_libs = build.load_all(bitpal_specs())
+    specs = bitpal_specs() + PARITY_SPECS
+    kernels, scheme_libs = build.load_all(specs)
     print(f"kernel library built from bgsa_tpu_torch/csrc/{{{','.join(build.SOURCES)}}}: "
           f"nvcc {kernels.build_seconds:.2f} s (one process per source, in parallel), "
           f"-> {os.path.relpath(kernels.path, REPO)}")
     for line in kernels.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+    check(build.ptxas_frames(kernels.log), "no ptxas report for the main library")
+    faults = frame_faults("main library", kernels)
     print("BitPAl libraries, one per kernel and scheme (built beside it, in parallel):")
-    spilling = []
-    for (name, *scheme), lib in zip(bitpal_specs(), scheme_libs):
+    for (name, *scheme), lib in zip(specs, scheme_libs):
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", lib.log)]
-        spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores", lib.log)
-        spilled = sum(int(a) + int(b) for a, b in spills)
+        spilled = sum(sum(f) for f in build.ptxas_frames(lib.log).values())
         print(f"  {name:13s} {tuple(scheme)}: nvcc {lib.build_seconds:.2f} s, "
               f"{len(regs)} kernels, ptxas registers {min(regs, default=0)}-{max(regs, default=0)}, "
               f"stack+spill bytes {spilled}, state in registers up to W={lib.reg_words}")
-        if spilled:
-            spilling.append(f"{name} {tuple(scheme)}")
-            for line in lib.log.splitlines():
-                if "Compiling entry" in line or "spill" in line or "registers" in line:
-                    print("    ptxas:", line.strip())
-    check(not spilling, f"ptxas reports a stack frame or spills in {', '.join(spilling)}")
-    print(f"all libraries built and loaded in {time.perf_counter() - t0:.2f} s")
+        faults += frame_faults(f"{name} {tuple(scheme)}", lib)
+    for fault in faults:
+        print("  ptxas:", fault)
+    check(not faults, f"ptxas reports a stack frame or spills in {len(faults)} function(s)")
+    print(f"no spill in any library, and no stack frame but the printing kernel's "
+          f"(device printf's argument buffer); all built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
     return smi
+
+
+def frame_faults(label, lib):
+    """One line for each function of a library's ptxas report with spill
+    stores or loads, or a stack frame outside a kernel that calls device
+    printf (its arguments' buffer is a stack frame)."""
+    from bgsa_tpu_torch.ops import build
+
+    faults = []
+    for fn, (stack, stores, loads) in build.ptxas_frames(lib.log).items():
+        if stores or loads or (stack and not any(k in fn for k in PRINTF_KERNELS)):
+            faults.append(f"{label} {fn}: {stack} bytes stack frame, {stores} bytes spill "
+                          f"stores, {loads} bytes spill loads")
+    return faults
 
 
 def compare(eq, queries, *, read_len, factor, is_global):
@@ -1218,11 +1275,221 @@ def phase_int_peak(smi):
     return best, err, launches, plain_ms, work
 
 
+# -- the paired-query experiments, the kprint fixture, gpu_parity --------------
+
+PAIR_STREAM_GRID = [  # (q_len, s_len, k) of the stream pair and the probes
+    (150, 150, 8),    # the experiments' geometry: four 32-column batches and a tail
+    (150, 150, 16),   # the band in the high word (band_down >= 32)
+    (150, 181, 16),   # band_down == 63
+    (40, 44, 4),      # a short query with a single checkpoint
+]
+PAIR_PACKED_GRID = [  # (q_len, s_len, k) of the packed pair
+    (150, 158, 8),    # n_sub = 2
+    (150, 150, 8),    # n_sub = 3
+    (72, 72, 5),      # n_sub = 5
+    (100, 100, 4),    # n_sub = 6
+    (3, 5, 4),        # q_len < k (n_sub = 5): err starts at k
+]
+PAIR_QUERIES = 4
+
+
+def pair_fns():
+    """name -> (wrapper, plain version) of every kernel of PAIR_KERNELS."""
+    import functools
+
+    from bgsa_tpu_torch.ops import banded_packed_pair as bpp
+    from bgsa_tpu_torch.ops import banded_pair as bpr
+
+    fns = {"banded_stream_pair": (bpr.banded_stream_pair, bpr.banded_stream_pair_ref)}
+    for mode in bpr.PROBE_MODES:
+        fns[f"banded_probe_{mode}"] = (functools.partial(bpr.banded_probe, mode=mode),
+                                       functools.partial(bpr.banded_probe_ref, mode=mode))
+    fns["banded_packed_pair"] = (bpp.banded_packed_pair, bpp.banded_packed_pair_ref)
+    return fns
+
+
+def pair_launches():
+    from bgsa_tpu_torch.ops import banded_packed_pair as bpp
+    from bgsa_tpu_torch.ops import banded_pair as bpr
+
+    return {**bpr.LAUNCHES, "banded_packed_pair": bpp.LAUNCHES}
+
+
+def reset_pair_launches():
+    from bgsa_tpu_torch.ops import banded_packed_pair as bpp
+    from bgsa_tpu_torch.ops import banded_pair as bpr
+
+    bpp.LAUNCHES = 0
+    for name in bpr.LAUNCHES:
+        bpr.LAUNCHES[name] = 0
+
+
+def pair_compare(name, streams, qt, kw):
+    """Kernel ``name`` vs its plain version on the same CUDA tensors -> (max
+    |diff|, kernel out)."""
+    kernel, plain = pair_fns()[name]
+    before = pair_launches()[name]
+    got = kernel(streams, qt, **kw)
+    torch.cuda.synchronize()
+    check(pair_launches()[name] == before + 1, f"{name} did not launch its kernel")
+    want = plain(streams, qt, **kw)
+    check(got.shape == want.shape and got.dtype == want.dtype == torch.int32,
+          f"{name} output shape/dtype")
+    return int((got.long() - want.long()).abs().max()), got
+
+
+def phase_pair_kernels(rng):
+    from bgsa_tpu_torch import pack
+    from bgsa_tpu_torch.banded_pipeline import BandedEngine
+    from bgsa_tpu_torch.ops import banded as bo
+    from bgsa_tpu_torch.ops import banded_packed as bpk
+
+    print("== phase 17: the paired-query kernels and the banded probes vs their plain versions, "
+          "and each pair vs the kernel it pairs, on the card (tolerance 0)")
+    max_err = dict.fromkeys(PAIR_KERNELS, 0)
+    before = pair_launches()
+    stream_names = [name for name in PAIR_KERNELS if name != "banded_packed_pair"]
+    for grid, names, shipping in (
+            (PAIR_STREAM_GRID, stream_names, "banded_stream"),
+            (PAIR_PACKED_GRID, ["banded_packed_pair"], "banded_stream_packed")):
+        for m, n, k in grid:
+            kw = dict(q_len=m, s_len=n, k=k)
+            over = []
+            for kind in BANDED_KINDS:
+                for S in RAGGED_S:
+                    q, s = banded_inputs(rng, PAIR_QUERIES, m, S, n, k, kind)
+                    codes, qt = torch.from_numpy(s).cuda(), torch.from_numpy(q).cuda()
+                    if shipping == "banded_stream":
+                        streams = pack.pack_banded_stream(codes, k, m)
+                        want = bo.banded_stream(streams, qt, **kw)
+                    else:
+                        streams = BandedEngine(k, device="cuda").kernel_args(shipping, codes, m)[0]
+                        want = bpk.banded_stream_packed(streams, qt, **kw)
+                    for name in names:
+                        err, got = pair_compare(name, streams, qt, kw)
+                        check(err == 0, f"{name} kernel != plain at {(m, n, k)} {kind} S={S}")
+                        max_err[name] = max(max_err[name], err)
+                        if "pair" in name:
+                            check(torch.equal(got, want),
+                                  f"{name} != {shipping} at {(m, n, k)} {kind} S={S}")
+                    if S == RAGGED_S[-1]:
+                        over.append(f"{kind} {float((want == 127).float().mean()):.2f}")
+            print(f"  q={m:3d} s={n:3d} k={k:2d}: {', '.join(names)} vs plain, pairs equal to "
+                  f"{shipping}; share over budget: {', '.join(over)}; max |diff| 0")
+    after = pair_launches()
+    print(f"  kernel launches in phase 17: { {k: after[k] - before[k] for k in after} }")
+    return max_err
+
+
+def against_plain(name, inputs, kw):
+    """Kernel ``name`` and its plain version on an experiment's own inputs ->
+    (kernel out, plain ms, max |diff|); fails unless the two are equal."""
+    from bgsa_tpu_torch.benchutil import elapsed_ms
+
+    kernel, plain = pair_fns()[name]
+    out, plain_out = kernel(*inputs, **kw), []
+    plain_ms = elapsed_ms(lambda: plain_out.append(plain(*inputs, **kw)), CARD)
+    err = int((out.long() - plain_out[0].long()).abs().max())
+    check(err == 0, f"{name} kernel != plain at the experiment's shape {tuple(out.shape)}")
+    return out, plain_ms, err
+
+
+def phase_experiments(smi):
+    """The two experiments at their own shapes -> (launches, {name: (ms,
+    plain ms, max |diff|, Work)}) of PAIR_KERNELS: ms is the median device
+    time of the variant's kernel in a chain (the profiler's); the plain
+    version is timed once on the same inputs, and its output is held against
+    the kernel's at tolerance 0."""
+    from bgsa_tpu_torch import pack, roofline
+    from bgsa_tpu_torch.benchutil import GateFailure
+    from bgsa_tpu_torch.ops import banded as bo
+    from bgsa_tpu_torch.ops import banded_packed_pair as bpp
+    from bgsa_tpu_torch.ops import banded_pair as bpr
+    from bgsa_tpu_torch.scripts import exp_banded_packed_pair as packed_exp
+    from bgsa_tpu_torch.scripts import exp_banded_pair as pair_exp
+
+    print(f"== phase 18: the paired-query experiments at their own shapes ({smi})")
+    reset_pair_launches()
+    try:
+        stream_run = pair_exp.run(CARD)
+        pair_exp.report(stream_run)
+        packed_runs = {kind: packed_exp.run(kind, CARD) for kind in packed_exp.KINDS}
+        for result in packed_runs.values():
+            packed_exp.report(result)
+    except GateFailure as e:
+        raise SmokeFailure(str(e)) from e
+    torch.cuda.synchronize()
+    launches = pair_launches()
+    for name in PAIR_KERNELS:
+        check(launches[name] > 0, f"the experiments launched no {name} kernel")
+    print(f"  gates bit-exact; kernel launches {launches}")
+
+    rows = {}
+    stream, queries, kw = stream_run["stream"], stream_run["queries"], stream_run["kw"]
+    (Q, m), S = queries.shape, stream.shape[-1]
+    live = []  # the pair threads still running before each column
+    bo.banded_stream_ref(stream, queries, live=live, threads=bpr.pair_threads, **kw)
+    variants = {"banded_stream_pair": "pair", "banded_probe_full": "p_full",
+                "banded_probe_static_c": "p_statc", "banded_probe_noload": "p_noload"}
+    for name, label in variants.items():
+        out, plain_ms, err = against_plain(name, (stream, queries), kw)
+        columns = sum(live) if name == "banded_stream_pair" else Q * S * m  # probes: every one
+        rows[name] = (statistics.median(stream_run["kernel_ms"][label]), plain_ms, err, Work(
+            main_library(), {}, columns, roofline.io_bytes(stream, queries, out), None))
+    mix = packed_runs["mix"]
+    streams, queries, codes, kw = mix["streams"], mix["queries"], mix["codes"], mix["kw"]
+    n_sub = streams.shape[0]
+    live = []
+    bo.banded_stream_ref(pack.pack_banded_stream(codes, kw["k"], kw["q_len"]), queries, live=live,
+                         threads=bpp.packed_pair_threads(n_sub), **kw)
+    out, plain_ms, err = against_plain("banded_packed_pair", (streams, queries), kw)
+    rows["banded_packed_pair"] = (statistics.median(mix["kernel_ms"]["pair"]), plain_ms, err, Work(
+        main_library(), {"n_sub": n_sub}, sum(live), roofline.io_bytes(streams, queries, out),
+        None))
+    for name, (ms, plain_ms, err, work) in rows.items():
+        print(f"  {name:21s} kernel alone {ms:.4f} ms (median device time in a chain); plain "
+              f"torch {plain_ms:.1f} ms (one run), kernel vs plain max |diff| {err}; "
+              f"thread-columns the inputs need {work.columns:.0f} ({smi})")
+    return launches, rows
+
+
+def phase_kprint():
+    """The fixture in a child process -> its JSON result (launches, ms, plain ms)."""
+    print("== phase 19: the kprint fixture in a child process (python -m bgsa_tpu_torch.debug)")
+    proc = subprocess.run([sys.executable, "-m", "bgsa_tpu_torch.debug"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"python -m bgsa_tpu_torch.debug exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    results = [line for line in lines if line.startswith("{")]
+    check(len(results) == 1, f"the child printed {len(results)} result lines")
+    result = json.loads(results[0])
+    probes = sum(line.strip() == "probe 0" for line in lines)
+    check(result["out_equals_x"], "kprint_probe's output != its input")
+    check(result["launches"] == 1, f"the fixture launched {result['launches']} kernels, not 1")
+    check(probes == result["probe_lines"],
+          f"{probes} 'probe 0' lines on the child's stdout, not {result['probe_lines']}")
+    print(f"  exit 0; 'probe 0' printed {probes} times (the fixture's launch, a warm-up, "
+          f"{result['timed_launches']} timed launches, the plain version); out == x; kernel "
+          f"median {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms ({result['device']})")
+    return result
+
+
+def phase_gpu_parity():
+    from bgsa_tpu_torch.scripts import gpu_parity
+
+    print("== phase 20: bgsa_tpu_torch.scripts.gpu_parity (every kernel family vs the oracles)")
+    rc = gpu_parity.main([])
+    check(rc == 0, f"gpu_parity exited {rc}")
+
+
 def kernel_bound(name, ms, work, sass, peak_ops_per_s):
     """(bound ms, "operations" or "bytes", pipe, instructions per column,
     JAX-op share) of one kernel row."""
     from bgsa_tpu_torch import roofline
 
+    if name not in roofline.SASS_SPECS:  # computes nothing: its bytes bound it
+        return (*roofline.bound(0, work.nbytes, 1.0), None, None, None)
     if work.library not in sass:
         text = roofline.sass_text(work.library)
         check(text is not None, "no cuobjdump: the kernels' SASS cannot be read")
@@ -1235,6 +1502,8 @@ def kernel_bound(name, ms, work, sass, peak_ops_per_s):
         per_column, work.columns, roofline.sm_count(), roofline.sm_clock_mhz())
     bound_ms, bound_by = roofline.bound(instructions, work.nbytes, rate)
     check(bound_ms <= 1.05 * ms, f"{name}: bound {bound_ms:.4f} ms above its time {ms:.4f} ms")
+    if work.jax_ops is None:
+        return bound_ms, bound_by, pipe, per_column, None
     jax_ms = roofline.bound(work.jax_ops, work.nbytes, peak_ops_per_s)[0]
     return bound_ms, bound_by, pipe, per_column, jax_ms / ms
 
@@ -1270,6 +1539,10 @@ def main() -> int:
             global_times = phase_myers_global_bench(rng, smi)
             global_launched = phase_mesh_and_shards(rng, tmp, smi, inputs[2])
         peak, peak_err, peak_launched, peak_plain, peak_work = phase_int_peak(smi)
+        pair_err = phase_pair_kernels(rng)
+        pair_launched, pair_rows = phase_experiments(smi)
+        kprint = phase_kprint()
+        phase_gpu_parity()
         check("jax" not in sys.modules, "jax was imported")
         check(not any(m == "bgsa_tpu" or m.startswith("bgsa_tpu.") for m in sys.modules),
               "a bgsa_tpu module was imported")
@@ -1292,6 +1565,12 @@ def main() -> int:
                  work))
     rows.append(("int_peak", *INT_PEAK, peak_launched, peak_err, peak["ms"], peak_plain,
                  peak_work))
+    for name, (source, replaces) in PAIR_KERNELS.items():
+        ms, plain, err, work = pair_rows[name]
+        rows.append((name, source, replaces, pair_launched[name], max(err, pair_err[name]), ms,
+                     plain, work))
+    rows.append(("kprint_probe", *KPRINT, kprint["launches"], 0, kprint["ms"], kprint["plain_ms"],
+                 Work(None, {}, 0, 2 * 4 * 8 * 128, None)))
     print("== bounds: each kernel's SASS per column at the slowest pipe's rate, or its bytes")
     kernels, sass = [], {}
     try:
@@ -1301,11 +1580,15 @@ def main() -> int:
             kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                             "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+            if per_column is None:
+                how = "its bytes: it computes nothing, and its time is launch latency"
+            else:
+                how = (f"{pipe} pipe; SASS per column {per_column['alu']:.1f} ALU, "
+                       f"{per_column['fma']:.1f} FMA, {per_column['issue']:.1f} issued")
+            if jax_share is not None:
+                how += f"; vs JAX-op count at the peak mix's rate {100 * jax_share:.1f} %"
             print(f"  {name:21s} {ms:10.4f} ms, bound {bound_ms:10.4f} ms by {bound_by} "
-                  f"({pipe} pipe; {100 * bound_ms / ms:.1f} % of the time); SASS per column "
-                  f"{per_column['alu']:.1f} ALU, {per_column['fma']:.1f} FMA, "
-                  f"{per_column['issue']:.1f} issued; vs JAX-op count at the peak mix's rate "
-                  f"{100 * jax_share:.1f} %; launches {launched}")
+                  f"({100 * bound_ms / ms:.1f} % of the time; {how}); launches {launched}")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -133,8 +133,76 @@ def test_importing_the_port_builds_nothing():
     import bgsa_tpu_torch.api  # noqa: F401
     import bgsa_tpu_torch.banded_pipeline  # noqa: F401
     import bgsa_tpu_torch.cli  # noqa: F401
+    import bgsa_tpu_torch.debug  # noqa: F401
+    import bgsa_tpu_torch.ops.banded_packed_pair  # noqa: F401
+    import bgsa_tpu_torch.ops.banded_pair  # noqa: F401
     import bgsa_tpu_torch.ops.bitpal  # noqa: F401
     import bgsa_tpu_torch.ops.bitpal_packed  # noqa: F401
     import bgsa_tpu_torch.pipeline  # noqa: F401
+    import bgsa_tpu_torch.scripts.exp_banded_packed_pair  # noqa: F401
+    import bgsa_tpu_torch.scripts.exp_banded_pair  # noqa: F401
+    import bgsa_tpu_torch.scripts.gpu_parity  # noqa: F401
 
     assert build._kernels is None and build._scheme_kernels == {}
+
+
+def test_the_paired_query_and_kprint_sources_are_built():
+    new = {"banded_pair.cu": ("bgsa_banded_stream_pair", "bgsa_banded_probe"),
+           "banded_packed_pair.cu": ("bgsa_banded_packed_pair",),
+           "kprint_probe.cu": ("bgsa_kprint_probe",)}
+    assert set(new) <= set(build.SOURCES)
+    for source, entry_points in new.items():
+        with open(os.path.join(build.CSRC_DIR, source)) as f:
+            text = f.read()
+        assert all(f"int {fn}(" in text and fn in build._SIGNATURES for fn in entry_points)
+
+
+def test_every_signature_matches_its_c_definition():
+    # ctypes passes each argument as declared: a count that differs from the
+    # C definition's shifts every argument after it
+    import re
+
+    defined = {}
+    for name in build.SOURCES:
+        with open(os.path.join(build.CSRC_DIR, name)) as f:
+            for fn, params in re.findall(r"^int (bgsa_\w+)\(([^)]*)\)", f.read(), re.M):
+                defined[fn] = 0 if not params.strip() else params.count(",") + 1
+    for fn, argtypes in build._SIGNATURES.items():
+        assert defined[fn] == len(argtypes), fn
+
+
+PTXAS_LOG = """ptxas info    : Compiling entry function '_Z3fooPi' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPi
+    16 bytes stack frame, 20 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 8 registers, 352 bytes cmem[0]
+"""
+
+
+def test_ptxas_frames_reads_each_function():
+    assert build.ptxas_frames(PTXAS_LOG) == {"_Z3fooPi": (16, 20, 12), "_Z3barv": (0, 0, 0)}
+    assert build.ptxas_frames("") == {}
+
+
+def test_a_cached_library_keeps_its_ptxas_report(tmp_path, monkeypatch):
+    # the spill check reads the report of a library loaded from the cache too
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'ptxas info    : Used 9 registers' >&2\n"
+                    'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
+    fake.chmod(fake.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(fake))
+    (tmp_path / "csrc").mkdir()
+    src = tmp_path / "csrc" / "k.cu"
+    src.write_text("// v1\n")
+    out = str(tmp_path / "out")
+    path, log, seconds = build.compile_library([str(src)], out)
+    assert "Used 9 registers" in log and seconds > 0
+    with open(path + ".log") as f:
+        assert f.read() == log
+    assert build.compile_library([str(src)], out) == (path, log, 0.0)
+    os.unlink(path + ".log")  # a library without its report is built again
+    again, log2, seconds = build.compile_library([str(src)], out)
+    assert again == path and log2 == log and seconds > 0

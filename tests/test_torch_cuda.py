@@ -9,10 +9,12 @@ import pytest
 import torch
 
 from bgsa_tpu_torch.benchutil import filter_mix_dataset
-from bgsa_tpu_torch import pack, roofline
+from bgsa_tpu_torch import debug, pack, roofline
 from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
 from bgsa_tpu_torch.ops import banded as bo
 from bgsa_tpu_torch.ops import banded_packed as bp
+from bgsa_tpu_torch.ops import banded_packed_pair as bpp
+from bgsa_tpu_torch.ops import banded_pair as bpr
 from bgsa_tpu_torch.ops import bitpal as tb
 from bgsa_tpu_torch.ops import bitpal_packed as tbp
 from bgsa_tpu_torch.ops import build
@@ -245,7 +247,8 @@ def test_bitpal_scheme_library_is_built_once(bitpal_cuda):
     path, log, seconds = build.compile_library(
         [f"{build.CSRC_DIR}/bitpal_packed.cu"], build.BUILD_DIR, stem="bgsa_bitpal_packed",
         tag=build.scheme_tag(2, -3, -5), defines=("BGSA_M=2", "BGSA_I=-3", "BGSA_G=-5"))
-    assert (path, log, seconds) == (first.path, "", 0.0)
+    # cached: nothing rebuilt, and the build's ptxas report read back from beside it
+    assert (path, seconds) == (first.path, 0.0) and "registers" in log
     other = Engine(normalize(Scoring(1, -1, -1)), PipelineConfig(), bitpal_cuda).load_library()
     assert other.path != first.path and other.path.endswith("-M1_I-1_G-1.so")
 
@@ -308,6 +311,9 @@ def test_banded_engine_on_two_shards_of_the_card(cuda, m, n, k):
     ("banded_stream_packed", {"n_sub": 3}, None), ("int_peak", {"chains": 16}, None),
     ("bitpal_packed", {"bits": 31, "W": 17}, "bitpal_packed"),
     ("bitpal", {"bits": 32, "W": 0}, "bitpal"),
+    ("banded_stream_pair", {}, None), ("banded_probe_full", {}, None),
+    ("banded_probe_static_c", {}, None), ("banded_probe_noload", {}, None),
+    ("banded_packed_pair", {"n_sub": 3}, None),
 ])
 def test_sass_column_loop_of_every_kernel(cuda, name, shape, library):
     # the bound's instruction counts come from the built library's SASS
@@ -331,3 +337,87 @@ def test_int_peak_matches_plain(cuda, chains):
     torch.cuda.synchronize()
     assert roofline.LAUNCHES == before + 1
     assert torch.equal(got, roofline.int_peak_ref(x, steps=3, unroll=7))
+
+
+def test_no_spill_in_the_main_library(cuda):
+    # ptxas gives no function a spill, and no stack frame but the printing
+    # kernel's (a device printf's argument buffer)
+    frames = build.ptxas_frames(build.load().log)
+    assert any("global31_regsILi17E" in fn for fn in frames)
+    bad = {fn: f for fn, f in frames.items()
+           if f[1] or f[2] or (f[0] and "kprint_probe_kernel" not in fn)}
+    assert not bad
+
+
+# -- the paired-query kernels, the banded probes, the kprint fixture -----------
+
+PAIR_STREAM = [(150, 150, 8), (150, 150, 16), (150, 181, 16), (40, 44, 4), (64, 80, 8)]
+PAIR_PACKED = [(150, 158, 8), (150, 150, 8), (72, 72, 5), (100, 100, 4), (3, 5, 4)]
+
+
+@pytest.mark.parametrize("S", [1, 129, 1000])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,k", PAIR_STREAM)
+def test_stream_pair_and_probes_match_plain(cuda, m, n, k, kind, S):
+    q, s = banded_inputs(m + n + k + S, m, n, k, kind, S=S, Q=4)
+    stream = pack.pack_banded_stream(torch.from_numpy(s).to(cuda), k, m)
+    qt = torch.from_numpy(q).to(cuda)
+    kw = dict(q_len=m, s_len=n, k=k)
+    before = dict(bpr.LAUNCHES)
+    got = bpr.banded_stream_pair(stream, qt, **kw)
+    probes = {mode: bpr.banded_probe(stream, qt[:3], mode=mode, **kw) for mode in bpr.PROBE_MODES}
+    torch.cuda.synchronize()
+    assert all(bpr.LAUNCHES[name] == before[name] + 1 for name in before)
+    assert torch.equal(got, bpr.banded_stream_pair_ref(stream, qt, **kw))
+    assert torch.equal(got, bo.banded_stream(stream, qt, **kw))
+    for mode, out in probes.items():
+        assert torch.equal(out, bpr.banded_probe_ref(stream, qt[:3], mode=mode, **kw)), mode
+
+
+@pytest.mark.parametrize("S", [1, 129, 1000])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,k", PAIR_PACKED)
+def test_packed_pair_matches_plain_and_packed(cuda, m, n, k, kind, S):
+    q, s = banded_inputs(m + n + k + S, m, n, k, kind, S=S, Q=4)
+    streams = BandedEngine(k, PipelineConfig(), cuda).kernel_args(
+        "banded_stream_packed", torch.from_numpy(s).to(cuda), m)[0]
+    qt = torch.from_numpy(q).to(cuda)
+    kw = dict(q_len=m, s_len=n, k=k)
+    before = bpp.LAUNCHES
+    got = bpp.banded_packed_pair(streams, qt, **kw)
+    torch.cuda.synchronize()
+    assert bpp.LAUNCHES == before + 1
+    assert torch.equal(got, bpp.banded_packed_pair_ref(streams, qt, **kw))
+    assert torch.equal(got, bp.banded_stream_packed(streams, qt, **kw))
+
+
+def test_kprint_probe_prints_and_copies(cuda, capfd):
+    x = torch.arange(8 * 128, dtype=torch.int32, device=cuda).reshape(8, 128)
+    before = debug.LAUNCHES
+    out = debug.kprint_probe(x)
+    debug.flush_device_prints()
+    assert debug.LAUNCHES == before + 1 and torch.equal(out, x)
+    assert "probe 0" in capfd.readouterr().out.splitlines()
+
+
+def test_the_experiments_find_their_kernels_in_the_profiler(cuda):
+    # each variant's kernel-name pattern matches exactly its own launches
+    # (kernel_times raises unless a profiled run sees exactly one)
+    from bgsa_tpu_torch.benchutil import kernel_times
+    from bgsa_tpu_torch.scripts import exp_banded_packed_pair as packed_exp
+    from bgsa_tpu_torch.scripts import exp_banded_pair as pair_exp
+
+    q, s = banded_inputs(1, 150, 150, 8, "mix", S=3 * 200, Q=2)
+    qt, codes = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    kw = dict(q_len=150, s_len=150, k=8)
+    stream = pack.pack_banded_stream(codes, 8, 150)
+    runs = {"single": lambda: bo.banded_stream(stream, qt, **kw),
+            "pair": lambda: bpr.banded_stream_pair(stream, qt, **kw)}
+    for label, mode in (("p_full", "full"), ("p_statc", "static_c"), ("p_noload", "noload")):
+        runs[label] = lambda mode=mode: bpr.banded_probe(stream, qt, mode=mode, **kw)
+    for name, run in runs.items():
+        assert len(kernel_times({name: run}, pair_exp.KERNELS, cuda, 1)[name]) == 1, name
+    streams = bp.pack_packed_streams(codes, 8, 150, 3)
+    for name, run in (("packed", lambda: bp.banded_stream_packed(streams, qt, **kw)),
+                      ("pair", lambda: bpp.banded_packed_pair(streams, qt, **kw))):
+        assert len(kernel_times({name: run}, packed_exp.KERNELS, cuda, 1)[name]) == 1, name

@@ -339,3 +339,39 @@ def test_instruction_bound_picks_the_slowest_pipe():
     assert by == "operations" and ms == pytest.approx(273 * 655_360_000 / (64 * 132 * 1.98e9) * 1e3)
     per = {"alu": 41, "fma": 23, "issue": 88.5}  # a banded column: issue binds
     assert roofline.instruction_bound(per, 1, 132, 1980.0)[2] == "issue"
+
+
+def test_sass_probe_kernel_column_from_its_innermost_largest_loop():
+    # a probe that loads no query code: the query loop holds a 16-column main
+    # loop and a one-column remainder; the column is the main loop's trip / 16
+    col = [("", "LOP3.LUT R4, R4, R5, RZ, 0xfe, !PT"), ("", "IADD3 R6, P0, R4, R6, RZ"),
+           ("", "IMAD.X R7, R5, 0x1, R7, P0")]
+    body = [("", "S2R R0, SR_TID.X"), ("", "MOV R9, RZ", "q")]
+    body += [("", "UIADD3 UR4, UR4, 0x10, URZ", "main")] + col * roofline.PEAK_UNROLL
+    body += [("@!P1", "BRA @main")]
+    body += [("", "UIADD3 UR4, UR4, 0x1, URZ", "rest")] + col + [("@!P2", "BRA @rest")]
+    body += [("", "STG.E desc[UR4][R2.64], R4"), ("@!P3", "BRA @q"), ("", "EXIT")]
+    name = "_ZN4anon19banded_probe_kernelILi2EEEvPKj"
+    ins = roofline.sass_functions(listing(name, body))[name]
+    per = roofline.column_instructions(ins, roofline.SASS_SPECS["banded_probe_noload"])
+    # 16 x 3 + UIADD3 + BRA over 16 columns: 2 ALU (LOP3, IADD3), 1 FMA
+    assert per == {"issue": 3 + 2 / 16, "alu": 2, "fma": 1}
+
+
+def test_sass_specs_of_the_paired_query_kernels():
+    specs = roofline.SASS_SPECS
+    # two query codes and the checkpoint flag a pair column; two codes a packed pair column
+    assert (specs["banded_stream_pair"].anchor, specs["banded_stream_pair"].anchors) == (
+        "LDG.E.U8.CONSTANT", 3)
+    assert specs["banded_packed_pair"].function.format(n_sub=3) == (
+        "banded_packed_pair_kernelILi3E")
+    assert specs["banded_packed_pair"].anchors == 2
+    assert specs["banded_probe_full"].anchors == 1
+    for mode, i in (("full", 0), ("static_c", 1), ("noload", 2)):
+        assert specs[f"banded_probe_{mode}"].function == f"banded_probe_kernelILi{i}E"
+    assert specs["banded_probe_static_c"].anchor is specs["banded_probe_noload"].anchor is None
+    # the probe's template argument order and its pinned trip are csrc/banded_pair.cu's
+    with open(os.path.join(REPO, "bgsa_tpu_torch", "csrc", "banded_pair.cu")) as f:
+        text = f.read()
+    assert "kProbeFull = 0, kProbeStaticC = 1, kProbeNoLoad = 2" in text
+    assert f"kProbeUnroll = {roofline.PEAK_UNROLL};" in text

@@ -51,6 +51,14 @@ def test_no_module_imports_bgsa_tpu(path):
     assert jax_package_imports(tree) == []
 
 
+def test_the_scan_covers_the_scripts_and_debug():
+    assert {"bgsa_tpu_torch/debug.py", "bgsa_tpu_torch/scripts/gpu_parity.py",
+            "bgsa_tpu_torch/scripts/exp_banded_pair.py",
+            "bgsa_tpu_torch/scripts/exp_banded_packed_pair.py",
+            "bgsa_tpu_torch/ops/banded_pair.py", "bgsa_tpu_torch/ops/banded_packed_pair.py"} <= set(
+        SOURCES)
+
+
 def test_the_scan_sees_lazy_imports():
     tree = ast.parse("def f():\n    from bgsa_tpu.pack import x\n    import bgsa_tpu\n"
                      "import bgsa_tpu_torch\nfrom . import pack\n")
