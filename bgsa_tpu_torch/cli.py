@@ -6,7 +6,13 @@ BitPAl, with ``--packed/--no-packed`` and ``--carry``), global or
 ``--semi-global``, and the banded filter (``-k``), on one device or split
 over local devices (``--shards``). Result files are byte-identical to
 ``bgsa-align``'s, so ``bgsa-convert`` reads them as they are. Flags of paths
-not ported yet (``--host``, ``-t``, ``-D``) are rejected.
+not ported yet (``--host``, ``-t``, ``-n``, ``-R``, ``-D``, ``--sync-dir``,
+``--sync-timeout``, ``--profile``, ``--profile-python``) are parsed as
+``bgsa-align`` parses them and refused with exit 1, naming the ROADMAP item
+that ports them. ``--backend`` picks between the TPU kernels and their XLA
+twins in ``bgsa-align``; the port has one CUDA kernel per route, so it
+accepts ``--backend auto`` and does nothing with it, and refuses ``pallas``
+and ``xla`` with exit 1.
 """
 
 from __future__ import annotations
@@ -19,10 +25,17 @@ import tempfile
 
 from .schemes import Mode, Scoring
 
-_NOT_PORTED = {
-    "host": ("--host", "multi-host roles, ROADMAP queue 1 #8"),
-    "devices": ("-t", "heterogeneous co-compute, ROADMAP queue 1 #8"),
-    "dynamic": ("-D", "dynamic balancing, ROADMAP queue 1 #8"),
+_NOT_PORTED = {  # argparse dest -> (flag, what it is and the ROADMAP item)
+    "host": ("--host", "multi-host roles, ROADMAP queue 1 #8b"),
+    "devices": ("-t", "heterogeneous co-compute, ROADMAP queue 1 #8a"),
+    "device_count": ("-n", "the device count of heterogeneous co-compute, ROADMAP queue 1 #8a"),
+    "ratio_file": ("-R", "device/host ratios of multi-host roles, ROADMAP queue 1 #8b"),
+    "dynamic": ("-D", "dynamic balancing, ROADMAP queue 1 #8b"),
+    "sync_dir": ("--sync-dir", "the time exchange of dynamic balancing, ROADMAP queue 1 #8b"),
+    "sync_timeout": ("--sync-timeout",
+                     "the time exchange of dynamic balancing, ROADMAP queue 1 #8b"),
+    "profile": ("--profile", "a profiler trace of the run, ROADMAP queue 1 #13"),
+    "profile_python": ("--profile-python", "a profiler trace of the run, ROADMAP queue 1 #13"),
 }
 
 
@@ -68,6 +81,9 @@ def align_main(argv=None) -> int:
                    help="mismatch score (default -1)")
     p.add_argument("-G", dest="gap", type=int, default=None, help="gap score (default -1)")
     p.add_argument("--semi-global", action="store_true", help="semi-global mode")
+    p.add_argument("--backend", default="auto", choices=["auto", "pallas", "xla"],
+                   help="accepted as bgsa-align accepts it; only 'auto' runs (the port has "
+                        "one CUDA kernel per route)")
     p.add_argument("--shards", type=int, default=1,
                    help="local device shards (0 = all local devices)")
     p.add_argument("--packed", action=argparse.BooleanOptionalAction, default=None,
@@ -87,13 +103,23 @@ def align_main(argv=None) -> int:
     # accepted only to be refused: these paths are not ported yet
     p.add_argument("--host", default=None, help=argparse.SUPPRESS)
     p.add_argument("-t", dest="devices", default=None, help=argparse.SUPPRESS)
+    p.add_argument("-n", dest="device_count", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("-R", dest="ratio_file", default=None, help=argparse.SUPPRESS)
     p.add_argument("-D", dest="dynamic", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--sync-dir", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--sync-timeout", type=float, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--profile", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--profile-python", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     for dest, (flag, what) in _NOT_PORTED.items():
         if getattr(args, dest) not in (None, False):
             print(f"error: {flag} is not ported yet ({what}); use bgsa-align", file=sys.stderr)
             return 1
+    if args.backend != "auto":
+        print(f"error: --backend {args.backend} has no counterpart in the port (one CUDA "
+              "kernel per route); use --backend auto, or bgsa-align", file=sys.stderr)
+        return 1
     # explicit scoring flags are told from the defaults, as bgsa-align does
     scoring_explicit = any(v is not None for v in (args.match, args.mismatch, args.gap))
     scoring = Scoring(0 if args.match is None else args.match,

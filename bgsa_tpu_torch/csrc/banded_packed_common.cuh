@@ -1,7 +1,8 @@
 // Shared pieces of the subject-interleaved packed banded kernels
-// (banded_packed.cu and the paired-query banded_packed_pair.cu): the field
-// masks, the column window fold, the packed band update, the SWAR
-// over-budget latch and the epilogue.
+// (banded_packed.cu and the paired-query kernel and probes of
+// banded_packed_pair.cu): the field masks, the column window fold (per
+// column, and per 32-column window through a shared-memory slot), the
+// packed band update, the SWAR over-budget latch and the epilogue.
 //
 // n_sub = 64 / (band_down + 2) subjects' bands share one 64-bit register at
 // pitch band_down + 2, one guard bit per field; field j of a thread scores
@@ -78,6 +79,59 @@ __device__ __forceinline__ uint64_t packed_window(const uint32_t* __restrict__ b
         const uint32_t win = __funnelshift_r(__ldg(pj), __ldg(pj + S_sub), b) & wmask;
         eq |= static_cast<uint64_t>(win) << (pitch * j);
       }
+    }
+  }
+  return eq;
+}
+
+// The window fold (the shipping kernel's column; packed_window is the
+// per-column form it replaced, kept for the paired-query kernel and the
+// probes). Within the 32-column window w = min(t >> 5, W - 2) every code's
+// and field's word pair is fixed, so a thread loads the 5 x n_sub pairs
+// once a window into its shared-memory slot, slot[(c * n_sub + j) *
+// kThreads] (slot pointing at its own column of the block's slots, so
+// neighbouring threads take neighbouring 8-byte words), and a column only
+// selects its code's pairs and funnel-shifts each by t & 31.
+constexpr int kSlotBytesPerField = kChars * sizeof(uint2) * kThreads;
+
+// Up to 4 fields all 10 n_sub loads are in flight (52-80 registers); from 5
+// fields on, one code's 2 n_sub at a time: all in flight took 168 and 188
+// registers at n_sub = 5 and 6 (2 blocks an SM), while one code at a time
+// ran n_sub = 2 and 3 7-8 % slower (PERF.md). The generic instance (NSUB ==
+// 0) loops to n_sub: unrolled to kMaxSub fields it took 252 registers.
+template <int NSUB>
+__device__ __forceinline__ void load_window(uint2* __restrict__ slot,
+                                            const uint32_t* __restrict__ base, size_t plane,
+                                            int S_sub, int n_sub, int w) {
+  auto code = [&](int c) {
+#pragma unroll
+    for (int j = 0; j < (NSUB > 0 ? NSUB : n_sub); ++j) {  // NSUB == 0: not unrolled
+      const uint32_t* p = base + (j * kChars + c) * plane + static_cast<size_t>(w) * S_sub;
+      slot[(c * n_sub + j) * kThreads] = make_uint2(__ldg(p), __ldg(p + S_sub));
+    }
+  };
+  if constexpr (NSUB > 0 && NSUB <= 4) {
+#pragma unroll
+    for (int c = 0; c < kChars; ++c) code(c);
+  } else {
+#pragma unroll 1
+    for (int c = 0; c < kChars; ++c) code(c);
+  }
+}
+
+// Column t's Eq register for query code c from the loaded window (0 for
+// codes outside 0..4): packed_window's value, bit for bit.
+template <int NSUB>
+__device__ __forceinline__ uint64_t fold_window(const uint2* __restrict__ slot, int n_sub,
+                                                int pitch, uint32_t wmask, int c, int t) {
+  uint64_t eq = 0;
+  if (c < kChars) {
+    const uint2* sc = slot + c * n_sub * kThreads;
+    const int b = t & 31;
+#pragma unroll
+    for (int j = 0; j < (NSUB > 0 ? NSUB : n_sub); ++j) {  // NSUB == 0: not unrolled
+      const uint2 v = sc[j * kThreads];
+      eq |= static_cast<uint64_t>(__funnelshift_r(v.x, v.y, b) & wmask) << (pitch * j);
     }
   }
   return eq;

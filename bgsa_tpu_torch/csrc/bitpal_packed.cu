@@ -20,8 +20,8 @@
 // What bounds it: integer logic, as in bitpal.cu, with far fewer planes
 // (5 for (2,-3,-5) against 13) and so fewer operations and registers per
 // word; the state is nbits x W words a pair, in registers up to the
-// scheme's bound (24 words, 744 bp, for (2,-3,-5) in 31-bit words) and in
-// the scratch beyond.
+// scheme's bound (24 words, 744 bp, for (2,-3,-5) in 31-bit words); beyond
+// it the tiled kernel of bitpal_common.cuh holds one word's planes.
 
 #include "bitpal_common.cuh"
 
@@ -50,6 +50,19 @@ struct Packed {
     uint32_t prev[Sc::kValues];  // one-row shift carries of phase A, by value - lo
     uint32_t row[TOP];        // one-row shift carries of the sum planes
   };
+
+  // The add carries, the phase-A shift carries of the values mid+1 .. hi-1
+  // (the network reads no other), then the row carries.
+  static constexpr int kCarryBits = 2 * Sc::kAdds - 1 + TOP;
+  template <class F>
+  static __device__ __forceinline__ void each_carry(Carries& c, F&& f) {
+#pragma unroll
+    for (int k = 0; k < Sc::kAdds; ++k) f(c.add[k], k);
+#pragma unroll
+    for (int v = mid + 1; v < hi; ++v) f(c.prev[v - lo], Sc::kAdds + v - mid - 1);
+#pragma unroll
+    for (int i = 0; i < TOP; ++i) f(c.row[i], 2 * Sc::kAdds - 1 + i);
+  }
 
   static __device__ __forceinline__ void init(uint32_t (&pl)[kPlanes], int semi) {
     // semi-global: stored(-(0 - G)) = G mod 2^nbits; global: 0 (DV = G)
@@ -206,10 +219,16 @@ struct Packed {
 
 extern "C" {
 
-// Largest W whose planes stay in registers; longer subjects need `scratch`
-// of nbits * W * Q * S words.
+// Largest W whose planes stay in registers; longer subjects take the tiled
+// kernel, which needs `scratch` of nbits * W * Q * S words when the query
+// spans more than one tile.
 int bgsa_reg_words() {
   return bitpal::reg_words<bitpal::Packed<BGSA_M, BGSA_I, BGSA_G, 32>>();
+}
+
+// Query columns a tile of the tiled kernel holds.
+int bgsa_tile_columns() {
+  return bitpal::tile_columns<bitpal::Packed<BGSA_M, BGSA_I, BGSA_G, 32>>();
 }
 
 const char* bgsa_error_string(int code) {

@@ -12,5 +12,7 @@ experiments' kernels of ``scripts/exp_banded_pair.py`` and
 compiles the CUDA sources under ``csrc/``. ``bgsa_tpu/ops/blockutil.py``
 (TPU VMEM block sizing, row padding to 128-lane tiles) has no counterpart:
 the CUDA kernels mask the ragged subject edge themselves and keep their
-state in registers or a scratch buffer the wrapper allocates.
+state in registers or a scratch buffer the wrapper allocates (BitPAl past
+its register bound: one word's planes in registers, word-major over tiles
+of query columns, the planes between tiles in the scratch).
 """

@@ -9,9 +9,12 @@ is latched per field by a top-bit subtraction.
 
 ``banded_stream_packed_ref`` is the plain torch version, after the XLA twin
 ``banded_packed_xla``: the queries as a batch dimension, the (lo, hi)
-uint32 pairs as one native int64 word. ``banded_stream_packed`` runs it for
-a CPU tensor and launches ``csrc/banded_packed.cu`` for a CUDA tensor,
-counting launches in ``LAUNCHES``.
+uint32 pairs as one native int64 word, each column's window folded from its
+own two words (``packed_window``). ``banded_stream_packed`` runs it for a
+CPU tensor and launches ``csrc/banded_packed.cu`` for a CUDA tensor,
+counting launches in ``LAUNCHES``. The kernel folds a column from words it
+loads once per 32-column window; ``windowed_columns`` is that schedule in
+plain torch (``window_slots`` and ``fold_window``), used by the tests only.
 
 Two corners where the JAX module's arithmetic leaves the reference
 (``bgsa_tpu.banded_ref``) are held to the reference here: the final error
@@ -103,25 +106,77 @@ def check_streams(streams, q_len, s_len, k) -> int:
     return n_sub
 
 
-def banded_stream_packed_ref(streams, queries, *, q_len: int, s_len: int, k: int):
-    """Plain torch version. streams (n_sub, 5, W, S_sub) int32, queries
-    (Q, m) -> (Q, n_sub * S_sub) int32 in original subject order."""
+def packed_window(st, t: int, pitch: int, wmask: int):
+    """Column t's Eq register of every code, the per-column form
+    (``csrc/banded_packed_common.cuh`` ``packed_window``): st (n_sub, 5, W,
+    S_sub) int64 words -> (5, S_sub) int64, field j holding chunk j's
+    band_down + 1 stream bits at t (two words and a funnel shift each)."""
+    W = st.shape[2]
+    w = min(t // WORD_BITS, W - 2)
+    return fold_window(window_slots(st, w), t % WORD_BITS, pitch, wmask)
+
+
+def window_slots(st, w: int):
+    """The window fold's load (``load_window``): every field's and code's
+    stream words w and w + 1 as one 64-bit pair, (n_sub, 5, S_sub) int64."""
+    return st[:, :, w] | (st[:, :, w + 1] << 32)
+
+
+def fold_window(slots, b: int, pitch: int, wmask: int):
+    """(``fold_window``) every code's Eq register at bit b of a loaded
+    window: (n_sub, 5, S_sub) pairs -> (5, S_sub) int64."""
+    wins = shr(slots, b) & wmask
+    return sum(wins[j] << (pitch * j) for j in range(slots.shape[0]))  # disjoint fields
+
+
+def column_eq(fields, codes):
+    """Each row's Eq register for its query code: (5, S_sub) fields x (Q,)
+    codes -> (Q, S_sub); codes outside 0..4 match nothing."""
+    codes = codes.long()
+    picked = fields[codes.clamp(0, CHAR_NUM - 1)]
+    return torch.where((codes < CHAR_NUM)[:, None], picked, torch.zeros_like(picked))
+
+
+def windowed_columns(st, *, q_len: int, s_len: int, k: int):
+    """The shipping kernel's columns in its schedule (``banded_packed.cu``):
+    the unscored head of min(k, q_len) columns, the 32-column latch batches
+    up to the last checkpoint, the tail. Yields (t, every code's Eq register
+    at t) from the window fold: the slots are loaded where the window
+    min(t >> 5, W - 2) changes, which is not where a batch starts (the
+    batches start at min(k, q_len))."""
+    h, band_down, _ = geometry(q_len, s_len, k)
+    pitch, wmask = band_down + 2, (1 << (band_down + 1)) - 1
+    W = st.shape[2]
+    head_end = min(k, q_len)
+    nb = max(0, (last_checkpoint(q_len, s_len, k) - head_end) // WORD_BITS)
+    batches = [range(head_end + i * WORD_BITS, head_end + (i + 1) * WORD_BITS) for i in range(nb)]
+    window, slots = -1, None
+    for t in [*range(head_end), *(t for batch in batches for t in batch),
+              *range(head_end + nb * WORD_BITS, q_len)]:
+        w = min(t >> 5, W - 2)
+        if w != window:
+            window, slots = w, window_slots(st, w)
+        yield t, fold_window(slots, t & 31, pitch, wmask)
+
+
+def packed_scan(streams, queries, *, q_len: int, s_len: int, k: int, eq_at, latch: bool = True):
+    """The packed recurrence over columns 0..q_len-1 -> (Q, n_sub * S_sub)
+    int32 in original subject order. ``eq_at(st, t, q)`` gives column t's
+    (Q, S_sub) Eq registers (st: the streams as int64 words, q: the (Q,
+    q_len) codes); ``latch`` False runs every column with no over-budget
+    latch (the probes)."""
     n_sub = check_streams(streams, q_len, s_len, k)
     h, band_down, _, pitch, _, band, xsm, ones, tops = consts(q_len, s_len, k)
     ones_u = ones
     band, xsm, ones, tops = map(const64, (band, xsm, ones, tops))
-    wmask = (1 << (band_down + 1)) - 1
     last_chk = last_checkpoint(q_len, s_len, k)
     st = streams.long() & MASK32  # (n_sub, 5, W, S_sub)
-    W, S_sub = st.shape[2:]
+    S_sub = st.shape[3]
     q = queries.to(streams.device).long()
     vp = vn = mt = torch.zeros((q.shape[0], S_sub), dtype=torch.int64, device=streams.device)
     dead = torch.zeros_like(vp)
     for t in range(q_len):
-        w, b = min(t // WORD_BITS, W - 2), t % WORD_BITS
-        wins = shr(st[:, :, w] | (st[:, :, w + 1] << 32), b) & wmask  # (n_sub, 5, S_sub)
-        fields = sum(wins[j] << (pitch * j) for j in range(n_sub))  # disjoint fields
-        x = fields[q[:, t]] | vn
+        x = eq_at(st, t, q) | vn
         d0 = (((x & vp) + vp) ^ vp) | x
         hn = d0 & vp
         hp = ~(d0 | vp) | vn
@@ -130,7 +185,7 @@ def banded_stream_packed_ref(streams, queries, *, q_len: int, s_len: int, k: int
         vp = (~(hp | xs) | hn) & band
         if t >= k:
             mt = mt + (d0 & ones)
-        if t + 1 == last_chk:  # matches < thr <=> err > max_err, per field
+        if latch and t + 1 == last_chk:  # matches < thr <=> err > max_err, per field
             thr = const64(max(last_chk - k - h - 1, 0) * ones_u)  # thr in every field
             dead = dead | (~((mt | tops) - thr) & tops)
     outs = []
@@ -143,6 +198,18 @@ def banded_stream_packed_ref(streams, queries, *, q_len: int, s_len: int, k: int
             mn = torch.minimum(mn, cur)
         outs.append(torch.where(shr(dead, o + pitch - 1) & 1 == 1, MAX_ERROR, mn))
     return torch.cat(outs, dim=1).to(torch.int32)
+
+
+def banded_stream_packed_ref(streams, queries, *, q_len: int, s_len: int, k: int):
+    """Plain torch version. streams (n_sub, 5, W, S_sub) int32, queries
+    (Q, m) -> (Q, n_sub * S_sub) int32 in original subject order."""
+    _, band_down, _ = geometry(q_len, s_len, k)
+    pitch, wmask = band_down + 2, (1 << (band_down + 1)) - 1
+
+    def eq_at(st, t, q):
+        return column_eq(packed_window(st, t, pitch, wmask), q[:, t])
+
+    return packed_scan(streams, queries, q_len=q_len, s_len=s_len, k=k, eq_at=eq_at)
 
 
 def banded_stream_packed(streams, queries, *, q_len: int, s_len: int, k: int):

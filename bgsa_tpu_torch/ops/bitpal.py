@@ -21,6 +21,14 @@ hand-written kernel (``csrc/bitpal.cu``, built per scheme) for a CUDA
 tensor, counting launches in ``LAUNCHES``. Nothing is routed to the plain
 version on the card.
 
+Past the register bound the kernel runs word-major over tiles of query
+columns and passes each column's cross-word carries to the next word in
+packed words. ``word_major_ref`` is that order in plain torch (over either
+network: ``UnpackedNet`` here, ``bitpal_packed.PackedNet``), with the
+carries packed by ``pack_carries`` in the kernel's bit order
+(``carry_layout``); it is used by the tests and ``chip_smoke.py``, never on
+the main path.
+
 ``BitpalParams`` is redefined here: ``bgsa_tpu.ops.bitpal`` imports jax.
 """
 
@@ -106,118 +114,174 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
     return x & 0x3F
 
 
+def _bitpal_word(dh, matches, carry, p: BitpalParams, word_bits: int = WORD_BITS):
+    """One word of one query column (the loop body of
+    ``bgsa_tpu.ops.bitpal._bitpal_column``).
+
+    dh: value -> the word's (Q, S) int32 indicator plane at the previous
+    column; matches: the word's (Q, S) match words for the column's
+    characters; carry: the cross-word carries from the word below,
+    (``"add"``, key) and (``"prev"``, value) -> 0/1 words (a missing one is
+    zero). Returns (the new planes dict, the carries out to the word above).
+    """
+    minv, midv, maxv = p.minv, p.midv, p.maxv
+    CM = word_mask(word_bits)
+    zeros = torch.zeros_like(matches)
+    out = {}
+
+    def add3(a, b, key):
+        s, out[("add", key)] = add_carry(a, b, carry.get(("add", key), zeros), word_bits)
+        return s
+
+    def prevbit(v):
+        return carry.get(("prev", v), zeros)
+
+    not_matches = ~matches
+
+    # ---- Phase A: horizontal-delta ("dv_shift") indicators ----
+    dv_shift = {}
+    dvsnm = {}  # dv_<v>_shift & not_matches
+    init_max = dh[minv] & matches
+    s = add3(init_max, dh[minv], 0)
+    dv_shift[maxv] = (s ^ dh[minv] ^ init_max) & CM
+    remain = (init_max & CM) ^ dh[minv]
+    dv_max_or_match = dv_shift[maxv] | matches
+
+    oi = 1
+    for i in range(maxv - 1, midv, -1):
+        cnt = minv + (maxv - i)
+        init_i = dh[cnt] & dv_max_or_match
+        for x in range(1, maxv - i):
+            init_i = init_i | (dh[cnt - x] & dvsnm[maxv - x])
+        # the bit that leaves the word on the one-row shift
+        init_val = ((init_i << 1) | prevbit(i)) & CM
+        out[("prev", i)] = bit(init_i, word_bits - 1)
+        s = add3(init_val, remain, oi)
+        dv_shift[i] = s ^ remain
+        dvsnm[i] = dv_shift[i] & not_matches
+        oi += 1
+
+    acc = dv_max_or_match
+    for i in range(maxv - 1, midv, -1):
+        acc = acc | dv_shift[i]
+    dv_not_hi = ~acc
+
+    index = minv + p.match - p.mismatch
+    for i in range(midv, minv, -1):
+        init_i = dh[index] & dv_max_or_match
+        dhi = index - 1
+        for j in range(maxv - 1, midv, -1):
+            init_i = init_i | (dh[dhi] & dvsnm[j])
+            dhi -= 1
+        init_i = init_i | (dh[dhi] & dv_not_hi)
+        dv_shift[i] = (init_i << 1) | prevbit(i)
+        out[("prev", i)] = bit(init_i, word_bits - 1)
+        index += 1
+
+    acc = dv_shift[maxv]
+    for i in range(maxv - 1, minv, -1):
+        acc = acc | dv_shift[i]
+    dv_shift[minv] = ~acc
+
+    # ---- Phase B: new vertical-delta planes ----
+    dh = dict(dh)
+    for i in range(midv + 1, maxv):
+        dh[i] = dh[i] & not_matches
+    dh_max_or_match = dh[maxv] | matches
+    acc = dh_max_or_match
+    for i in range(maxv - 1, midv, -1):
+        acc = acc | dh[i]
+    dh_lo_mask = ~acc
+
+    new = {}
+    index = maxv - 1
+    for i in range(minv + 1, midv + 1):
+        t1 = dv_shift[index] & dh_max_or_match
+        dhi = maxv - 1
+        for j in range(1, p.max_sub_mid):
+            t1 = t1 | (dv_shift[index - j] & dh[dhi])
+            dhi -= 1
+        new[i] = t1 | (dv_shift[index - p.max_sub_mid] & dh_lo_mask)
+        index -= 1
+
+    value = p.max_sub_mid
+    for i in range(midv + 1, maxv + 1):
+        t1 = dv_shift[index] & dh_max_or_match
+        dhi = maxv - 1
+        for j in range(1, value):
+            t1 = t1 | (dv_shift[index - j] & dh[dhi])
+            dhi -= 1
+        new[i] = t1
+        value -= 1
+        index -= 1
+
+    acc = new[maxv]
+    for i in range(maxv - 1, minv, -1):
+        acc = acc | new[i]
+    new[minv] = (~acc) & CM
+    return new, out
+
+
 def _bitpal_column(planes, matches_w, p: BitpalParams, word_bits: int = WORD_BITS):
     """One query column over all words (``bgsa_tpu.ops.bitpal._bitpal_column``).
 
     planes: dict value -> list of per-word (Q, S) int32 indicator planes;
     matches_w: list of per-word (Q, S) match words for the column's
-    characters. Returns the new planes dict.
+    characters. Returns the new planes dict. The carries start at zero and
+    pass from each word to the next.
     """
-    W = len(matches_w)
-    minv, midv, maxv = p.minv, p.midv, p.maxv
-    CM = word_mask(word_bits)
-    zeros = torch.zeros_like(matches_w[0])
-
-    overflow = {}
-
-    def add3(a, b, key):
-        s, overflow[key] = add_carry(a, b, overflow.get(key, zeros), word_bits)
-        return s
-
-    prevbit = {v: zeros for v in p.values}
     out = {v: [] for v in p.values}
-
-    for w in range(W):
-        dh = {v: planes[v][w] for v in p.values}
-        matches = matches_w[w]
-        not_matches = ~matches
-
-        # ---- Phase A: horizontal-delta ("dv_shift") indicators ----
-        dv_shift = {}
-        dvsnm = {}  # dv_<v>_shift & not_matches
-        init_max = dh[minv] & matches
-        s = add3(init_max, dh[minv], 0)
-        dv_shift[maxv] = (s ^ dh[minv] ^ init_max) & CM
-        remain = (init_max & CM) ^ dh[minv]
-        dv_max_or_match = dv_shift[maxv] | matches
-
-        oi = 1
-        for i in range(maxv - 1, midv, -1):
-            cnt = minv + (maxv - i)
-            init_i = dh[cnt] & dv_max_or_match
-            for x in range(1, maxv - i):
-                init_i = init_i | (dh[cnt - x] & dvsnm[maxv - x])
-            # the bit that leaves the word on the one-row shift
-            nxt = bit(init_i, word_bits - 1)
-            init_val = ((init_i << 1) | prevbit[i]) & CM
-            prevbit[i] = nxt
-            s = add3(init_val, remain, oi)
-            dv_shift[i] = s ^ remain
-            dvsnm[i] = dv_shift[i] & not_matches
-            oi += 1
-
-        acc = dv_max_or_match
-        for i in range(maxv - 1, midv, -1):
-            acc = acc | dv_shift[i]
-        dv_not_hi = ~acc
-
-        index = minv + p.match - p.mismatch
-        for i in range(midv, minv, -1):
-            init_i = dh[index] & dv_max_or_match
-            dhi = index - 1
-            for j in range(maxv - 1, midv, -1):
-                init_i = init_i | (dh[dhi] & dvsnm[j])
-                dhi -= 1
-            init_i = init_i | (dh[dhi] & dv_not_hi)
-            dv_shift[i] = (init_i << 1) | prevbit[i]
-            prevbit[i] = bit(init_i, word_bits - 1)
-            index += 1
-
-        acc = dv_shift[maxv]
-        for i in range(maxv - 1, minv, -1):
-            acc = acc | dv_shift[i]
-        dv_shift[minv] = ~acc
-
-        # ---- Phase B: new vertical-delta planes ----
-        for i in range(midv + 1, maxv):
-            dh[i] = dh[i] & not_matches
-        dh_max_or_match = dh[maxv] | matches
-        acc = dh_max_or_match
-        for i in range(maxv - 1, midv, -1):
-            acc = acc | dh[i]
-        dh_lo_mask = ~acc
-
-        new = {}
-        index = maxv - 1
-        for i in range(minv + 1, midv + 1):
-            t1 = dv_shift[index] & dh_max_or_match
-            dhi = maxv - 1
-            for j in range(1, p.max_sub_mid):
-                t1 = t1 | (dv_shift[index - j] & dh[dhi])
-                dhi -= 1
-            new[i] = t1 | (dv_shift[index - p.max_sub_mid] & dh_lo_mask)
-            index -= 1
-
-        value = p.max_sub_mid
-        for i in range(midv + 1, maxv + 1):
-            t1 = dv_shift[index] & dh_max_or_match
-            dhi = maxv - 1
-            for j in range(1, value):
-                t1 = t1 | (dv_shift[index - j] & dh[dhi])
-                dhi -= 1
-            new[i] = t1
-            value -= 1
-            index -= 1
-
-        acc = new[maxv]
-        for i in range(maxv - 1, minv, -1):
-            acc = acc | new[i]
-        new[minv] = (~acc) & CM
-
+    carry = {}
+    for w, matches in enumerate(matches_w):
+        new, carry = _bitpal_word({v: planes[v][w] for v in p.values}, matches, carry, p,
+                                  word_bits)
         for v in p.values:
             out[v].append(new[v])
-
     return out
+
+
+# -- the cross-word carries, packed as the tiled kernel passes them ------------
+
+def carry_layout(p: BitpalParams, packed: bool = False) -> list:
+    """The carries a word passes to the next, in the order of their bits in
+    the packed carry words (each Net's ``each_carry`` in ``csrc``): the
+    run-propagation add carries (``"add"``, key), then the one-row shift
+    carries the network reads (``"prev"``, value): of the values
+    minv+1 .. maxv-1, or for the packed network midv+1 .. maxv-1 followed by
+    its sum planes' row carries (``"row"``, plane)."""
+    adds = [("add", key) for key in range(p.maxv - p.midv)]
+    if not packed:
+        return adds + [("prev", v) for v in range(p.minv + 1, p.maxv)]
+    nbits = max((p.maxv - p.minv).bit_length() + 1, 2)
+    return (adds + [("prev", v) for v in range(p.midv + 1, p.maxv)]
+            + [("row", i) for i in range(nbits - 1)])
+
+
+def carry_words(layout) -> int:
+    """int32 words that hold a layout's carry bits."""
+    return -(-len(layout) // 32)
+
+
+def pack_carries(carries: dict, layout) -> list:
+    """0/1 carries (key -> (Q, S) int32; a missing one is zero) -> the packed
+    carry words, carry i of ``layout`` at bit i % 32 of word i // 32."""
+    like = next(iter(carries.values()), None)
+    words = []
+    for w in range(carry_words(layout)):
+        acc = 0
+        for i, key in enumerate(layout[32 * w:32 * (w + 1)]):
+            if key in carries:
+                acc = acc | (carries[key].long() << i)
+        if isinstance(acc, int):
+            acc = torch.zeros((), dtype=torch.long) if like is None else torch.zeros_like(
+                like, dtype=torch.long)
+        words.append((acc & 0xFFFFFFFF).to(torch.int32))
+    return words
+
+
+def unpack_carries(words, layout) -> dict:
+    """The packed carry words -> key -> 0/1 (Q, S) int32 carries."""
+    return {key: bit(words[i // 32], i % 32) for i, key in enumerate(layout)}
 
 
 def valid_masks(read_len: int, W: int, word_bits: int = WORD_BITS) -> list[int]:
@@ -295,6 +359,84 @@ def bitpal_ref(eq, queries, *, match: int, mismatch: int, gap: int, read_len: in
     return _global_score(planes, p, read_len, m, factor, word_bits)
 
 
+class UnpackedNet:
+    """The non-packed network, one word at a time, for ``word_major_ref``:
+    a word's state is its planes dict (value -> (Q, S) int32)."""
+
+    packed = False
+
+    def __init__(self, p: BitpalParams, word_bits: int):
+        self.p, self.word_bits = p, word_bits
+        self.layout = carry_layout(p)
+
+    def init(self, like, semi_global: bool):
+        return {v: planes[0] for v, planes in
+                _init_planes(self.p, like, 1, semi_global, self.word_bits).items()}
+
+    def word(self, planes, matches, carry):
+        return _bitpal_word(planes, matches, carry, self.p, self.word_bits)
+
+    def global_base(self, q_len: int, read_len: int) -> int:
+        return self.p.gap * q_len
+
+    def word_score(self, planes, mask: int):
+        return sum(v * popcount(planes[v] & mask) for v in self.p.values if v != 0)
+
+    def row_delta(self, planes, b: int):
+        return sum(v * bit(planes[v], b) for v in self.p.values if v != 0)
+
+
+def word_major_ref(net, eq, queries, *, read_len: int, factor: int = 1,
+                   semi_global: bool = False, tile: int):
+    """The tiled kernel's loop order in plain torch (``csrc/bitpal_common.cuh``
+    ``bitpal_tiled_kernel``), for ``net`` (``UnpackedNet`` or
+    ``bitpal_packed.PackedNet``): over tiles of ``tile`` query columns, words
+    in order, each word's planes kept across the tile's columns (and from one
+    tile to the next), each column's carries read from and written to its
+    packed carry words (``pack_carries``, word 0 reading zeros), the
+    epilogue folded into the last tile's word loop. Scores equal the
+    column-major plain versions bit for bit."""
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    _, W, S = eq.shape
+    Q, m = queries.shape
+    q = queries.to(device=eq.device, dtype=torch.long)
+    like = torch.zeros((Q, S), dtype=torch.int32, device=eq.device)
+    masks = valid_masks(read_len, W, net.word_bits)
+    score = torch.full_like(like, net.p.gap * m if semi_global else net.global_base(m, read_len))
+    best = score
+    tiles = max(1, -(-m // tile))
+    state = [None] * W  # the scratch: each word's planes between tiles
+    for k in range(tiles):
+        columns = range(k * tile, min(m, (k + 1) * tile))
+        slots = {c: pack_carries({}, net.layout) for c in columns}
+        for w in range(W):
+            planes = net.init(like, semi_global) if k == 0 else state[w]
+            for c in columns:
+                matches = eq[q[:, c], w]  # (Q, S)
+                planes, carry = net.word(planes, matches, unpack_carries(slots[c], net.layout))
+                slots[c] = pack_carries(carry, net.layout)
+            if k + 1 < tiles:
+                state[w] = planes
+            elif semi_global:
+                for b in range(max(min(read_len - w * net.word_bits, net.word_bits), 0)):
+                    score = score + net.row_delta(planes, b)
+                    best = torch.maximum(best, score)
+            else:
+                score = score + net.word_score(planes, masks[w])
+    return (best if semi_global else score) * factor
+
+
+def bitpal_tiled_ref(eq, queries, *, match: int, mismatch: int, gap: int, read_len: int,
+                     factor: int = 1, semi_global: bool = False, word_bits: int = WORD_BITS,
+                     tile: int = 32):
+    """``bitpal_ref``'s scores in the tiled kernel's word-major order
+    (``word_major_ref``). eq (5, W, S) int32, queries (Q, m) -> (Q, S) int32."""
+    net = UnpackedNet(BitpalParams(match, mismatch, gap), word_bits)
+    return word_major_ref(net, eq, queries, read_len=read_len, factor=factor,
+                          semi_global=semi_global, tile=tile)
+
+
 def bitpal(eq, queries, *, match: int, mismatch: int, gap: int, read_len: int,
            factor: int = 1, semi_global: bool = False, word_bits: int = WORD_BITS):
     """(5, W, S) int32 Eq words x (Q, m) query codes -> (Q, S) int32 scores.
@@ -320,8 +462,10 @@ def launch(kernel: str, p: BitpalParams, planes: int, eq, queries, *, read_len, 
            semi_global, word_bits):
     """Launch the BitPAl kernel ``kernel`` ("bitpal" or "bitpal_packed") of
     scheme ``p`` on CUDA tensors. Its state of ``planes`` planes per word
-    lives in registers up to the library's ``reg_words`` words, and in a
-    (planes, W, Q, S) device scratch allocated here beyond that."""
+    lives in registers up to the library's ``reg_words`` words; past it the
+    tiled kernel holds one word's planes, and keeps them between tiles in a
+    (planes, W, Q, S) device scratch allocated here when the query spans
+    more than one tile."""
     from . import build
 
     kernels = build.load_scheme(kernel, p.match, p.mismatch, p.gap)
@@ -333,7 +477,7 @@ def launch(kernel: str, p: BitpalParams, planes: int, eq, queries, *, read_len, 
     if Q == 0 or S == 0:
         return out
     scratch = None
-    if W > kernels.reg_words:
+    if W > kernels.reg_words and m > kernels.tile_columns:
         scratch = torch.empty((planes, W, Q, S), dtype=torch.int32, device=eq.device)
     with torch.cuda.device(eq.device):
         stream = torch.cuda.current_stream(eq.device).cuda_stream
@@ -344,3 +488,4 @@ def launch(kernel: str, p: BitpalParams, planes: int, eq, queries, *, read_len, 
         )
     kernels.check(rc, kernel)
     return out
+

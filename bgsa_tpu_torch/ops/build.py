@@ -13,7 +13,10 @@ The BitPAl kernels (``SCHEME_SOURCES``) are built apart, one library per
 kernel and scoring scheme: ``load_scheme`` compiles the source with
 ``-DBGSA_M/-DBGSA_I/-DBGSA_G``, so the column network's shape is fixed at
 compile time, into ``lib<kernel>-<digest>-M<M>_I<I>_G<G>.so`` beside the
-main library, cached across runs the same way.
+main library, cached across runs the same way. Loaded libraries stay loaded
+for the life of the process, one per (kernel, scheme) and never more: the
+mode, word layout and shapes of a run are launch arguments, so they share
+their scheme's library.
 
 Importing this module builds nothing. ``load()`` and ``load_scheme()``
 build on first use (the first kernel launch on a CUDA tensor, or
@@ -59,6 +62,7 @@ class Kernels:
     log: str  # nvcc's stderr (ptxas register and spill report), read back when cached
     build_seconds: float  # 0.0 when the cached library was loaded
     reg_words: int  # largest W whose kernel state stays in registers
+    tile_columns: int = 0  # BitPAl: query columns a tile of the tiled kernel holds
 
     def check(self, rc: int, name: str) -> None:
         """Raise if a launch returned a CUDA error."""
@@ -156,11 +160,15 @@ _SIGNATURES = {
     "bgsa_banded_stream_pair": [_ptr] * 4 + [_i32] * 9 + [_ptr],
     "bgsa_banded_probe": [_ptr] * 3 + [_i32] * 8 + [_ptr],
     "bgsa_banded_packed_pair": [_ptr] * 3 + [_i32] * 9 + [_ptr],
+    "bgsa_banded_packed_probe": [_ptr] * 3 + [_i32] * 9 + [_ptr],
     "bgsa_kprint_probe": [_ptr] * 2 + [_i32] + [_ptr],
 }
-# every scheme library: (eq, queries, out, scratch, Q, m, W, S, read_len,
-# factor, semi_global, word_bits, stream)
-_SCHEME_SIGNATURE = [_ptr] * 4 + [_i32] * 8 + [_ptr]
+# each scheme library's kernel: (eq, queries, out, scratch, Q, m, W, S,
+# read_len, factor, semi_global, word_bits, stream)
+_SCHEME_SIGNATURES = {
+    "bitpal": [_ptr] * 4 + [_i32] * 8 + [_ptr],
+    "bitpal_packed": [_ptr] * 4 + [_i32] * 8 + [_ptr],
+}
 _COMMON = {"bgsa_reg_words": [], "bgsa_error_string": [_i32]}
 
 
@@ -200,8 +208,9 @@ def scheme_tag(match: int, mismatch: int, gap: int) -> str:
 
 def load_scheme(kernel: str, match: int, mismatch: int, gap: int) -> Kernels:
     """Build (on first use) and load BitPAl kernel ``kernel`` ("bitpal" or
-    "bitpal_packed") for one scheme. Libraries of different schemes build
-    concurrently; one scheme's builds once."""
+    "bitpal_packed") for one scheme. Libraries of
+    different schemes build concurrently; one scheme's builds and loads once,
+    and stays loaded (the cache holds one library per kernel and scheme)."""
     if f"{kernel}.cu" not in SCHEME_SOURCES:
         raise ValueError(f"no per-scheme kernel {kernel!r}")
     key = (kernel, match, mismatch, gap)
@@ -215,8 +224,9 @@ def load_scheme(kernel: str, match: int, mismatch: int, gap: int) -> Kernels:
                 defines=(f"BGSA_M={match}", f"BGSA_I={mismatch}", f"BGSA_G={gap}"),
             )
             lib = ctypes.CDLL(path)
-            _declare(lib, {f"bgsa_{kernel}": _SCHEME_SIGNATURE})
-            _scheme_kernels[key] = Kernels(lib, path, log, seconds, lib.bgsa_reg_words())
+            _declare(lib, {f"bgsa_{kernel}": _SCHEME_SIGNATURES[kernel], "bgsa_tile_columns": []})
+            _scheme_kernels[key] = Kernels(lib, path, log, seconds, lib.bgsa_reg_words(),
+                                           lib.bgsa_tile_columns())
         return _scheme_kernels[key]
 
 

@@ -158,8 +158,8 @@ _LINE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T\d]+\s+)?([A-Z][A-Z0-9_
 class SassSpec:
     """Where a kernel's column loop is in its SASS.
 
-    function: a substring of the instance's mangled name, formatted with the
-      shape (``W``, ``bits``, ``n_sub``, ``chains``);
+    function: a regular expression that finds the instance's mangled name,
+      formatted with the shape (``W``, ``bits``, ``n_sub``, ``chains``);
     anchor: the opcode that loads a column's query code, ``anchors`` times a
       column (None: a kernel that loads none, whose largest innermost loop
       holds PEAK_UNROLL columns or chain steps: the peak kernel, and the
@@ -177,14 +177,22 @@ _CODE = "LDG.E.U8.CONSTANT"
 SASS_SPECS = {
     "myers_semiglobal": SassSpec("myers_regsILi{W}E", "LDS.U8"),
     "myers_global": SassSpec("global31_regsILi{W}E", "LDS.U8"),
-    # W = 0: the scratch instance, whose word loop runs W times a column
+    # the register instances: one column of all W words a trip
     "bitpal_packed": SassSpec("ELi{bits}ELi{W}EE", "LDS.U8"),
     "bitpal": SassSpec("ELi{bits}ELi{W}EE", "LDS.U8"),
+    # the tiled kernel past the register bound: one word of one column a
+    # trip (its column loop runs inside the word loop). Its bound is the
+    # network's cost, the largest register instance's SASS per column over
+    # its words; this count, with the tiled design's carry packing and slot
+    # traffic, is reported beside the bound and never in it
+    "bitpal_packed_tiled": SassSpec(r"bitpal_tiled_kernel.*ELi{bits}EEEv", "LDS.U8"),
+    "bitpal_tiled": SassSpec(r"bitpal_tiled_kernel.*ELi{bits}EEEv", "LDS.U8"),
     # the query code and the checkpoint flag: two byte loads a column
     "banded_stream": SassSpec("banded_stream_kernelILb0E", _CODE, 2, every=False),
     "banded_stream_dual": SassSpec("banded_stream_kernelILb1E", _CODE, 2, every=False),
     "banded": SassSpec("banded_peq_kernel", _CODE, 2, every=False),
-    "banded_stream_packed": SassSpec("banded_packed_kernelILi{n_sub}E", _CODE, 1, every=False),
+    # the query code from the row staged in shared memory
+    "banded_stream_packed": SassSpec("banded_packed_kernelILi{n_sub}E", "LDS.U8", 1, every=False),
     "int_peak": SassSpec("int_peak_kernelILi{chains}E", None),
     # two query codes and the checkpoint flag a pair column
     "banded_stream_pair": SassSpec("banded_stream_pair_kernel", _CODE, 3, every=False),
@@ -222,8 +230,9 @@ def sass_functions(text: str) -> dict:
 
 
 def find_function(functions: dict, pattern: str) -> list:
-    """The instructions of the one function whose name holds ``pattern``."""
-    names = [name for name in functions if pattern in name]
+    """The instructions of the one function whose name ``pattern`` (a
+    regular expression) finds."""
+    names = [name for name in functions if re.search(pattern, name)]
     if len(names) != 1:
         raise ValueError(f"{len(names)} SASS functions match {pattern!r}")
     return functions[names[0]]
@@ -251,13 +260,12 @@ def _loops(ins) -> list:
             if (t := _target(x)) is not None and t <= x[0] and t in index]
 
 
-def _trip(body, every: bool, anchor: str | None, inner=None) -> dict:
+def _trip(body, every: bool, anchor: str | None) -> dict:
     """Instructions per pipe of one trip through a loop body (its last
     instruction the back edge): every instruction on the path where each
     conditional branch falls through, or (``every`` False) the shortest
     path with only the query-code checks (``ISETP.GT.U32 Px, ..., code,
-    0x4``) falling through. ``inner``: (first, last, per-pipe counts of all
-    its trips) of a loop nested in the body, taken as one step."""
+    0x4``) falling through."""
     n = len(body)
     index = {x[0]: i for i, x in enumerate(body)}
     codes = {x[3].split(",")[0] for x in body if x[2] == anchor}
@@ -267,9 +275,6 @@ def _trip(body, every: bool, anchor: str | None, inner=None) -> dict:
     for p in PIPE_RATES:
         dist = [float("inf")] * (n + 1)
         for i in reversed(range(n)):
-            if inner and i == inner[0]:
-                dist[i] = inner[2][p] + dist[inner[1] + 1]
-                continue
             x = body[i]
             w = 1 if p in pipe(x[2]) else 0
             if i == n - 1:
@@ -290,12 +295,15 @@ def _trip(body, every: bool, anchor: str | None, inner=None) -> dict:
     return out
 
 
-def column_instructions(ins, spec: SassSpec, *, inner_trips: int = 0) -> dict:
+def column_instructions(ins, spec: SassSpec) -> dict:
     """Instructions per pipe of one column (one thread, one query character;
-    for the peak kernel one step of every chain) of the kernel instance
-    ``ins``: the cheapest of its column loops, one trip over the columns it
-    holds. ``inner_trips``: trips of a loop nested in the column loop (the
-    scratch instances' word loop: W)."""
+    for the peak kernel one step of every chain; for BitPAl's tiled kernel
+    one word of one column) of the kernel instance ``ins``: the cheapest of
+    its column loops, one trip over the columns it holds. A loop nested in a
+    column loop counts one trip, where the path goes through it (the packed
+    banded kernel's window load, once every 32 columns, which the shortest
+    path skips): its trips are not in the SASS, and fewer keep the count a
+    floor."""
     loops = _loops(ins)
 
     def anchors(lo, hi):
@@ -314,15 +322,7 @@ def column_instructions(ins, spec: SassSpec, *, inner_trips: int = 0) -> dict:
         raise ValueError(f"no loop loads {spec.anchor}")
     best = None
     for lo, hi in column_loops:
-        nested = [(a, b) for a, b in loops if lo < a and b < hi]
-        inner = None
-        if nested:
-            if len(nested) > 1 or not inner_trips:
-                raise ValueError("a column loop with nested loops needs one, and its trips")
-            a, b = nested[0]
-            per = _trip(ins[a:b + 1], True, None)
-            inner = (a - lo, b - lo, {p: v * inner_trips for p, v in per.items()})
-        trip = _trip(ins[lo:hi + 1], spec.every, spec.anchor, inner)
+        trip = _trip(ins[lo:hi + 1], spec.every, spec.anchor)
         cols = anchors(lo, hi) / spec.anchors
         per_column = {p: v / cols for p, v in trip.items()}
         best = per_column if best is None else {p: min(best[p], per_column[p]) for p in best}

@@ -1,26 +1,32 @@
-"""Experiment: two queries per packed banded thread.
+"""Experiment: two queries per packed banded thread, and the packed column's cost.
 
 The twin of ``scripts/exp_banded_packed_pair.py`` on the card. The packed
 banded kernel (``csrc/banded_packed.cu``) runs one 64-bit register's serial
 chain a column for n_sub subjects; the test carries two queries' packed
 states per thread (``ops.banded_packed_pair.banded_packed_pair``), both
 reading the same subject words, and asks whether the second independent
-chain lifts its rate.
+chain lifts its rate. Beside them run the packed column's cost probes
+(``ops.banded_packed_pair.banded_packed_probe``, no TPU twin): ``p_full``
+(the column in its per-column form: the query code, the plane address, two
+stream words and a funnel shift per field), ``p_statc`` (no query-code
+read) and ``p_noload`` (the band update alone), every column run, nothing
+latched; the split prices what the shipping kernel's window fold removes.
 
 Shape: the experiment's own: rng 13, Q = 8, k = 8, 150 bp, S = 65,280
 (n_sub = 3; the subject count rounded down to n_sub x 128), subjects from
 ``filter_mix_dataset`` (``mix``) or uniform random (``garbage``), the
 streams packed on the device by ``pack_packed_streams``. Gate: the pair
-kernel equals ``banded_stream_packed`` bit for bit. Timing: both variants,
-each a chain of 24 launches (``benchutil.chain_of``), 8 interleaved
-repetitions, each chain timed by CUDA events; billed GCUPS and M align/s
-from the medians, fastest first, with the change against ``packed``, and
-on the card each kernel's own device time (``benchutil.kernel_times``: a
-chain is dispatched launch by launch, and these kernels are short enough
-for the host's work between launches to show). The
-JAX script's ``packed_r16u16`` and ``pair_r32u16`` set ``rows_per_block``,
-which has no counterpart here (a CUDA thread holds one subject group, with
-no row blocks), so they cannot be reproduced.
+kernel equals ``banded_stream_packed`` bit for bit, and each probe its
+plain version on the first two queries and 128 subjects a chunk. Timing:
+every variant, each a chain of 24 launches (``benchutil.chain_of``), 8
+interleaved repetitions, each chain timed by CUDA events; billed GCUPS and
+M align/s from the medians, fastest first, with the change against
+``packed``, and on the card each kernel's own device time
+(``benchutil.kernel_times``: a chain is dispatched launch by launch, and
+these kernels are short enough for the host's work between launches to
+show). The JAX script's ``packed_r16u16`` and ``pair_r32u16`` set
+``rows_per_block``, which has no counterpart here (a CUDA thread holds one
+subject group, with no row blocks), so they cannot be reproduced.
 
     python -m bgsa_tpu_torch.scripts.exp_banded_packed_pair [mix|garbage] [--device cpu]
 
@@ -48,7 +54,10 @@ CHAIN, REPS = 24, 8
 KINDS = ("mix", "garbage")
 # variant -> its CUDA kernel's name in the profiler (n_sub = 3 at this shape)
 KERNELS = {"packed": r"banded_packed_kernel(<3>|ILi3E)",
-           "pair": r"banded_packed_pair_kernel(<3>|ILi3E)"}
+           "pair": r"banded_packed_pair_kernel(<3>|ILi3E)",
+           **{f"p_{label}": rf"banded_packed_probe_kernel(<{i}, 3>|ILi{i}ELi3E)"
+              for i, label in enumerate(("full", "statc", "noload"))}}
+PROBES = {"p_full": "full", "p_statc": "static_c", "p_noload": "noload"}
 
 
 def inputs(kind: str):
@@ -83,10 +92,17 @@ def run(kind: str, device) -> dict:
     if not torch.equal(want, got):
         bad = torch.nonzero(want != got)[:5].tolist()
         raise GateFailure(f"[{kind}] banded_packed_pair != banded_stream_packed at {bad}")
+    few = streams[:, :, :, :128].contiguous()
+    for label, mode in PROBES.items():
+        got = bpp.banded_packed_probe(few, queries[:2], mode=mode, **kw)
+        if not torch.equal(got, bpp.banded_packed_probe_ref(few, queries[:2], mode=mode, **kw)):
+            raise GateFailure(f"[{kind}] banded_packed_probe {mode} != its plain version")
     print("bit-exact", file=sys.stderr)
 
     runs = {"packed": lambda x: bpk.banded_stream_packed(streams, x, **kw),
-            "pair": lambda x: bpp.banded_packed_pair(streams, x, **kw)}
+            "pair": lambda x: bpp.banded_packed_pair(streams, x, **kw),
+            **{label: lambda x, mode=mode: bpp.banded_packed_probe(streams, x, mode=mode, **kw)
+               for label, mode in PROBES.items()}}
     samples = {name: chain_of(fn, queries, CHAIN) for name, fn in runs.items()}
     for sample in samples.values():
         sample()  # warm-up

@@ -29,7 +29,9 @@ Phases; any failure exits non-zero, before the result line:
    the host ``pack.pack_banded_host``;
 7. banded kernel and plain times by CUDA events at the JAX bench's banded
    line (Q=8, S=65,280, 150 bp, k=8, filter mix) and at one production
-   bucket (Q=20, S=190,080), each of the four kernels on the same data;
+   bucket (Q=20, S=190,080), each of the four kernels on the same data, and
+   the packed kernel's device time (a CUDA graph of 20 launches, replayed:
+   the kernels line's ``device_ms``; its ``ms`` stays the CUDA-event time);
 8. the banded filter at production size through ``bgsa_tpu_torch.cli``:
    ``-k 8`` with 20 x 150 bp queries against 1,000,000 x 150 bp filter-mix
    subjects (the packed kernel), ``-k 16`` on a 100,000-subject slice (the
@@ -43,14 +45,18 @@ Phases; any failure exits non-zero, before the result line:
 9. the two BitPAl kernels (general integer scoring) against their plain
    torch versions on the card, bit for bit (tolerance 0), over schemes
    (2,-3,-5), (1,-1,-1), (0,-2,-3), the unpacked-only (5,-1,-2) and the
-   wide (5,-4,-11), subject lengths 1..1100 bp (1100 bp takes the scratch
-   path of every scheme), both word layouts (31 and 32 bits), both modes
-   and ragged subject counts;
+   wide (5,-4,-11) and (5,-4,-10), subject lengths 1..1100 bp (1100 bp
+   takes the tiled kernel of every scheme, over two tiles of query columns;
+   at 500 bp a tiled kernel is also held to the word-major plain model),
+   both word layouts (31 and 32 bits), both modes and ragged subject
+   counts;
 10. BitPAl kernel and plain times by CUDA events at the JAX bench's BitPAl
     line (Q=40, m=500, S=32768, n=500, (2,-3,-5), global; packed with
     31-bit words, and the non-packed kernel with 32-bit words on the same
-    data) and at one production bucket (Q=20, S=190,080, 150 bp, both
-    kernels, both modes);
+    data: its tiled kernel), at one production bucket (Q=20, S=190,080,
+    150 bp, both kernels, both modes: the register paths) and at 1,100 bp
+    (S=8192: both tiled, held to each other, the plain versions taking
+    minutes there);
 11. the 500 bp BitPAl golden (2,-3,-5) through ``run_alignment``, packed
     and non-packed, byte for byte;
 12. general scoring at production size through ``bgsa_tpu_torch.cli``:
@@ -82,19 +88,20 @@ Phases; any failure exits non-zero, before the result line:
     rate (cuobjdump: the SASS per chain step) held to 105 % of SMs x 64 x
     ``clocks.max.sm``.
 
-17. the paired-query kernels (the stream pair, the packed pair) and the
-    three banded probes against their plain versions on the card, and each
-    pair against the shipping kernel it pairs (tolerance 0: integer
-    scores), over a geometry grid (several batches and a tail, the stream
-    band in the high word and at band_down == 63, packed n_sub 2, 3, 5 and 6,
-    a single-checkpoint query, a packed q_len < k corner) x garbage, near
-    and mix inputs x ragged subject counts;
+17. the paired-query kernels (the stream pair, the packed pair), the three
+    stream probes and the three packed-column probes against their plain
+    versions on the card, and each pair against the shipping kernel it
+    pairs (tolerance 0: integer scores), over a geometry grid (several
+    batches and a tail, the stream band in the high word and at band_down
+    == 63, packed n_sub 2, 3, 5 and 6, a single-checkpoint query, a packed
+    q_len < k corner) x garbage, near and mix inputs x ragged subject
+    counts;
 18. the two experiments (``bgsa_tpu_torch.scripts.exp_banded_pair`` and
-    ``exp_banded_packed_pair``, ``mix`` and ``garbage``) at their own
-    shapes: each gate, then every variant's rate from chains of 24 launches
-    timed by CUDA events, and each variant's kernel alone (its device time
-    in one more chain, from the profiler: the kernels line's times; the
-    path whose launches the kernels line counts);
+    ``exp_banded_packed_pair``, ``mix`` and ``garbage``, with the packed
+    probes) at their own shapes: each gate, then every variant's rate from
+    chains of 24 launches timed by CUDA events, and each variant's kernel
+    alone (its device time in one more chain, from the profiler: the
+    kernels line's times; the path whose launches the kernels line counts);
 19. the kprint fixture in a child process (``python -m
     bgsa_tpu_torch.debug``): the kernel's device printf reaches the child's
     C stdout at a synchronisation, after lines Python printed later, so the
@@ -117,9 +124,16 @@ The second-to-last line is a JSON object describing each kernel of the
 paths, with its bound: the kernel's own instructions per column (its SASS,
 ``roofline.column_instructions``) for the columns the timed inputs need, at
 the slowest pipe's published rate at ``clocks.max.sm``, or the bytes over
-3.35 TB/s, whichever is larger. A bound above 105 % of the kernel's measured
-time fails the run: a floor cannot be slower than the kernel. The last line
-is ``{"ok": true, "device": {...}}``.
+3.35 TB/s, whichever is larger (for BitPAl's tiled kernel, the SASS per
+column of the scheme's largest register instance over its words, for every
+word-column: the network's cost, not the design's). A bound above 105 % of
+the kernel's measured time fails the run: a floor cannot be slower than
+the kernel. Each row also gives what its design adds, beside the bound and
+never in it: ``state_bytes``, the bytes it moves through a device scratch
+(BitPAl's planes between tiles), and ``design_sass``, the tiled kernel's
+own SASS per word-column (null elsewhere); and ``device_ms``, the packed
+banded kernel's device time from a CUDA graph (null elsewhere). The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -179,15 +193,19 @@ class Work:
     """What a timed kernel run had to do, for its bound: the library and the
     shape that pick its SASS instance (``roofline.SASS_SPECS``), the
     thread-columns the inputs need, the bytes it must move, the JAX source's
-    operation count (None where none was taken), and the trips of a word
-    loop nested in its column loop."""
+    operation count (None where none was taken), and what the design adds
+    besides (reported beside the bound, never in it: a design must not move
+    its own floor): the state bytes it moves through a device scratch, and
+    the SASS entry of its own loop where the bound takes another instance's
+    (BitPAl's tiled kernel is bound by its register network per word)."""
 
     library: str | None
     shape: dict
     columns: float
     nbytes: int
     jax_ops: float | None
-    inner_trips: int = 0
+    state_bytes: int = 0  # device scratch the design moves besides (not in the bound)
+    design: str | None = None  # roofline.SASS_SPECS entry of the design's loop (not in the bound)
 
 
 def main_library() -> str:
@@ -511,6 +529,8 @@ BANDED_GRID = [  # (q_len, s_len, k): every route and edge
     (150, 150, 8),   # packed, n_sub = 3 (the headline geometry)
     (100, 100, 4),   # packed, n_sub = 6
     (40, 44, 4),     # packed, a short query with a single checkpoint
+    (100, 100, 3),   # packed, n_sub = 8 (the generic instance)
+    (7, 7, 1),       # packed, n_sub = 16: slots past 48 KB of shared memory
     (150, 150, 16),  # stream, band in the hi word
     (150, 181, 16),  # stream, band_down == 63
     (100, 95, 20),   # dual, 2k >= 32 and band_down >= 32
@@ -524,6 +544,8 @@ RAGGED_S = (1, 129, 1000)
 # one bucket of the production run (BUCKET_SIZE // 151, in 128s)
 BANDED_TIMED = (("bench line (bench.py:278-284)", 8, 65280),
                 ("one production bucket", 20, 190080))
+# the packed kernel's device time: launches a CUDA graph, replays timed
+GRAPH_LAUNCHES, GRAPH_REPLAYS = 20, 5
 # production runs: subjects of the -k 8 run, of the -k 16 and dual slices,
 # and of the Peq-carry run
 BANDED_SUBJECTS, BANDED_SLICE, PEQ_SUBJECTS = 1_000_000, 100_000, 10_000
@@ -666,16 +688,37 @@ def phase_banded_bench(rng, smi):
             plain_ms = statistics.median(
                 cuda_times_ms(lambda: plain(*args, qt, **kw), runs=3, warmup=1))
             over = float((got == 127).float().mean())
-            print(f"    {name:21s} kernel median {kernel_ms:.4f} ms over 20 runs = "
-                  f"{cells / kernel_ms / 1e6:.1f} GCUPS; plain torch median {plain_ms:.1f} ms "
-                  f"over 3 runs; device packing {pack_ms:.3f} ms; over budget {over:.3f}; "
-                  f"max |diff| {err} ({smi})")
+            line = (f"    {name:21s} kernel median {kernel_ms:.4f} ms over 20 runs = "
+                    f"{cells / kernel_ms / 1e6:.1f} GCUPS")
+            device_ms = None
+            if name == "banded_stream_packed":  # sub-0.2 ms: also its device time
+                device_ms = statistics.median(graph_times_ms(lambda: kernel(*args, qt, **kw)))
+                line += (f"; device time {device_ms:.4f} ms (median of {GRAPH_REPLAYS} replays "
+                         f"of a CUDA graph of {GRAPH_LAUNCHES} launches)")
+            print(f"{line}; plain torch median {plain_ms:.1f} ms over 3 runs; device packing "
+                  f"{pack_ms:.3f} ms; over budget {over:.3f}; max |diff| {err} ({smi})")
             if label == BANDED_TIMED[0][0]:
                 n_sub = packed_subbands(m, n, k) if name == "banded_stream_packed" else 1
                 results[name] = (err, kernel_ms, plain_ms, Work(
                     main_library(), {"n_sub": n_sub}, sum(live) / n_sub,
-                    roofline.io_bytes(*args, qt, got), roofline.banded_ops(name, live)))
+                    roofline.io_bytes(*args, qt, got), roofline.banded_ops(name, live)),
+                    device_ms)
     return results
+
+
+def graph_times_ms(fn) -> list:
+    """Device ms of one ``fn()``: GRAPH_LAUNCHES calls captured in one CUDA
+    graph, each of GRAPH_REPLAYS replays timed by CUDA events, over the
+    launches. A call timed alone by CUDA events also holds the host's
+    dispatch, which is as long as a sub-0.2 ms kernel; a replay launches the
+    kernels back to back from the device."""
+    fn()  # warm-up: the library is loaded outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    return [t / GRAPH_LAUNCHES for t in cuda_times_ms(graph.replay, runs=GRAPH_REPLAYS, warmup=1)]
 
 
 def write_codes(path, codes):
@@ -762,14 +805,23 @@ BITPAL_KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "bitpal": ("bgsa_tpu_torch/csrc/bitpal.cu", "bgsa_tpu/ops/bitpal.py:315"),
 }
 # the kernel grid's schemes: the bench scheme, small and zero-match
-# lattices, an unpacked-only scheme and a wide one (28 planes unpacked)
-BITPAL_SCHEMES = [(2, -3, -5), (1, -1, -1), (0, -2, -3), (5, -1, -2), (5, -4, -11)]
-# (n, m, S): 1100 bp is past every scheme's register bound (the scratch path)
-BITPAL_GRID = [(1, 12, 1000), (33, 12, 129), (150, 12, 1000), (500, 6, 129), (1100, 3, 200)]
-# timed shapes (label, Q, m, S, n) for (2,-3,-5): the JAX bench's BitPAl line
-# and one bucket of the production run
+# lattices, an unpacked-only scheme and two wide ones (28 planes unpacked,
+# and VERDICT's (5,-4,-10): 26 planes, whose register path ends at 2 words
+# and whose carries take two words)
+BITPAL_SCHEMES = [(2, -3, -5), (1, -1, -1), (0, -2, -3), (5, -1, -2), (5, -4, -11),
+                  (5, -4, -10)]
+# (n, m, S): 1100 bp is past every scheme's register bound (the tiled
+# kernel), and its 33 query columns cross the 32-column tile (the planes go
+# through the scratch); at 500 bp a tiled kernel is also held to the
+# word-major plain model
+BITPAL_GRID = [(1, 12, 1000), (33, 12, 129), (150, 12, 1000), (500, 6, 129), (1100, 33, 200)]
+BITPAL_MODEL_N = 500
+# timed shapes (label, Q, m, S, n) for (2,-3,-5): the JAX bench's BitPAl
+# line, one bucket of the production run, and 1,100 bp (the tiled kernel
+# on both routes)
 BITPAL_TIMED = (("bench line (bench.py:187, 310-321)", 40, 500, 32768, 500),
-                ("one production bucket", 20, 150, 190080, 150))
+                ("one production bucket", 20, 150, 190080, 150),
+                ("1,100 bp", 40, 500, 8192, 1100))
 # subjects of the packed production run and of the slice the other runs take
 BITPAL_SUBJECTS, BITPAL_SLICE = 1_000_000, 100_000
 
@@ -784,17 +836,29 @@ def bitpal_specs():
 
 
 def bitpal_fns(name):
-    """(wrapper, plain version, module holding LAUNCHES) of a BitPAl kernel."""
+    """(wrapper, plain version, module holding LAUNCHES, word-major plain
+    model of the tiled kernel) of a BitPAl kernel."""
     from bgsa_tpu_torch.ops import bitpal as tb
     from bgsa_tpu_torch.ops import bitpal_packed as tbp
 
     if name == "bitpal_packed":
-        return tbp.bitpal_packed, tbp.bitpal_packed_ref, tbp
-    return tb.bitpal, tb.bitpal_ref, tb
+        return tbp.bitpal_packed, tbp.bitpal_packed_ref, tbp, tbp.bitpal_packed_tiled_ref
+    return tb.bitpal, tb.bitpal_ref, tb, tb.bitpal_tiled_ref
 
 
 def bitpal_launches():
     return {name: bitpal_fns(name)[2].LAUNCHES for name in BITPAL_KERNELS}
+
+
+def bitpal_paths(name, scheme, W, m):
+    """Which instance a launch takes: 'registers', or 'tiled' (with the
+    number of tiles of the library's tile_columns)."""
+    from bgsa_tpu_torch.ops import build
+
+    lib = build.load_scheme(name, *scheme)
+    if W <= lib.reg_words:
+        return "registers"
+    return f"tiled, {max(1, -(-m // lib.tile_columns))} tile(s)"
 
 
 def reset_bitpal_launches():
@@ -802,22 +866,32 @@ def reset_bitpal_launches():
         bitpal_fns(name)[2].LAUNCHES = 0
 
 
-def bitpal_compare(name, eq, qt, **kw):
+def bitpal_compare(name, eq, qt, model=False, **kw):
     """Kernel vs plain version on the same CUDA tensors -> (max |diff|,
-    kernel out, plain ms by CUDA events)."""
-    fn, ref, module = bitpal_fns(name)
+    kernel out, plain ms by CUDA events). ``model``: the kernel's output is
+    also held to the word-major plain model at the library's tile (the
+    larger of the two differences is returned)."""
+    from bgsa_tpu_torch.ops import build
+
+    fn, ref, module, tiled_ref = bitpal_fns(name)
     before = module.LAUNCHES
     got = fn(eq, qt, **kw)
     torch.cuda.synchronize()
     check(module.LAUNCHES == before + 1, f"{name} did not launch its kernel")
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    want = ref(eq, qt, **kw)
+    wants = [ref(eq, qt, **kw)]
     stop.record()
     torch.cuda.synchronize()
-    check(got.shape == want.shape and got.dtype == want.dtype == torch.int32,
-          f"{name} output shape/dtype")
-    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if model:
+        scheme = (kw["match"], kw["mismatch"], kw["gap"])
+        wants.append(tiled_ref(eq, qt, tile=build.load_scheme(name, *scheme).tile_columns, **kw))
+    err = 0
+    for want in wants:
+        check(got.shape == want.shape and got.dtype == want.dtype == torch.int32,
+              f"{name} output shape/dtype")
+        if got.numel():
+            err = max(err, int((got.long() - want.long()).abs().max()))
     return err, got, start.elapsed_time(stop)
 
 
@@ -841,25 +915,33 @@ def phase_bitpal_kernels(rng):
                     kw = dict(match=scheme[0], mismatch=scheme[1], gap=scheme[2], read_len=n,
                               factor=factor, semi_global=semi, word_bits=word_bits)
                     for name in names:
-                        err, _, _ = bitpal_compare(name, eq, qt, **kw)
-                        check(err == 0, f"{name} {scheme} kernel != plain at n={n} S={S} "
+                        model = (n == BITPAL_MODEL_N
+                                 and W > build.load_scheme(name, *scheme).reg_words)
+                        err, _, _ = bitpal_compare(name, eq, qt, model=model, **kw)
+                        check(err == 0, f"{name} {scheme} kernel != plain at n={n} m={m} S={S} "
                                         f"word_bits={word_bits} semi={semi}")
                         max_err[name] = max(max_err[name], err)
                 for name in names:
-                    reg_words = build.load_scheme(name, *scheme).reg_words
-                    paths.append(f"{name}/{word_bits} W={W} "
-                                 f"{'registers' if W <= reg_words else 'scratch'}")
+                    path = bitpal_paths(name, scheme, W, m)
+                    if path != "registers" and n == BITPAL_MODEL_N:
+                        path += ", and vs the word-major model"
+                    paths.append(f"{name}/{word_bits} W={W} {path}")
             print(f"  {scheme} n={n:4d} m={m:2d} S={S:4d}, both modes: {'; '.join(paths)}: "
                   "max |diff| 0")
     return max_err
 
 
 def phase_bitpal_bench(rng, smi):
+    """Kernel and plain times at BITPAL_TIMED -> ({name: (max |diff|, ms,
+    plain ms, Work)} at the bench line, {label: (name, ms, Work)} of the
+    other global lines)."""
     from bgsa_tpu_torch import roofline
+    from bgsa_tpu_torch.ops import bitpal as tb
+    from bgsa_tpu_torch.ops import bitpal_packed as tbp
     from bgsa_tpu_torch.ops import build
 
     print(f"== phase 10: BitPAl kernel and plain times, (2,-3,-5) ({smi})")
-    results = {}
+    results, extra = {}, {}
     routes = (("bitpal_packed", 31), ("bitpal", 32))
     for label, Q, m, S, n in BITPAL_TIMED:
         cells = Q * m * S * n
@@ -868,27 +950,61 @@ def phase_bitpal_bench(rng, smi):
         qt = torch.from_numpy(random_codes(rng, (Q, m))).cuda()
         print(f"  {label}: Q={Q} m={m} S={S} n={n} (device unpack and pack_eq equal "
               "the host packers)")
-        for semi in ((False,) if label == BITPAL_TIMED[0][0] else (False, True)):
+        outs = {}
+        for semi in ((False, True) if label == BITPAL_TIMED[1][0] else (False,)):
             for name, wb in routes:
                 fn = bitpal_fns(name)[0]
                 kw = dict(match=2, mismatch=-3, gap=-5, read_len=n, semi_global=semi,
                           word_bits=wb)
-                err, _, plain_ms = bitpal_compare(name, eqs[wb], qt, **kw)
+                if label == BITPAL_TIMED[2][0]:
+                    # the plain versions take minutes here (phase 9 holds the
+                    # kernels to them at 1,100 bp): the two kernels, two
+                    # networks, must agree
+                    outs[name] = fn(eqs[wb], qt, **kw)
+                    err, plain_ms = 0, float("nan")
+                else:
+                    err, _, plain_ms = bitpal_compare(name, eqs[wb], qt, **kw)
                 check(err == 0, f"{name} kernel != plain at the {label}")
                 kernel_ms = statistics.median(
                     cuda_times_ms(lambda: fn(eqs[wb], qt, **kw), runs=10, warmup=2))
-                print(f"    {name:13s} {wb}-bit {'semi-global' if semi else 'global'}: kernel "
-                      f"median {kernel_ms:.4f} ms over 10 runs = {cells / kernel_ms / 1e6:.1f} "
-                      f"GCUPS; plain torch {plain_ms:.1f} ms (one run); max |diff| {err} ({smi})")
+                W = eqs[wb].shape[1]
+                path = bitpal_paths(name, (2, -3, -5), W, m)
+                plain = "not run" if outs else f"{plain_ms:.1f} ms (one run)"
+                print(f"    {name:13s} {wb}-bit {'semi-global' if semi else 'global'} W={W} "
+                      f"({path}): kernel median {kernel_ms:.4f} ms over 10 runs = "
+                      f"{cells / kernel_ms / 1e6:.1f} GCUPS; plain torch {plain}; max |diff| "
+                      f"{err} ({smi})")
+                if semi:
+                    continue
+                lib = build.load_scheme(name, 2, -3, -5)
+                if W > lib.reg_words:
+                    # the tiled kernel, bound by the network's own cost: the
+                    # largest register instance's SASS per column over its
+                    # words, for every word-column; the tiled kernel's own
+                    # loop (carry packing, slots) is reported beside it
+                    check(lib.reg_words > 0, f"{name} (2,-3,-5) has no register instance")
+                    p = tb.BitpalParams(2, -3, -5)
+                    planes = len(p.values) if name == "bitpal" else tbp._bits_num(p)
+                    tiles = max(1, -(-m // lib.tile_columns))
+                    work = Work(lib.path, {"bits": wb, "W": lib.reg_words},
+                                Q * m * S * W / lib.reg_words,
+                                roofline.io_bytes(eqs[wb], qt) + 4 * Q * S,
+                                roofline.word_kernel_ops(name, Q, m, S, n),
+                                state_bytes=2 * (tiles - 1) * planes * 4 * W * Q * S,
+                                design=f"{name}_tiled")
+                else:
+                    work = Work(lib.path, {"bits": wb, "W": W}, Q * m * S,
+                                roofline.io_bytes(eqs[wb], qt) + 4 * Q * S,
+                                roofline.word_kernel_ops(name, Q, m, S, n))
                 if label == BITPAL_TIMED[0][0]:
-                    lib = build.load_scheme(name, 2, -3, -5)
-                    W = eqs[wb].shape[1]
-                    scratch = W > lib.reg_words  # the scratch instance (W = 0) loops W words
-                    results[name] = (err, kernel_ms, plain_ms, Work(
-                        lib.path, {"bits": wb, "W": 0 if scratch else W}, Q * m * S,
-                        roofline.io_bytes(eqs[wb], qt) + 4 * Q * S,
-                        roofline.word_kernel_ops(name, Q, m, S, n), W if scratch else 0))
-    return results
+                    results[name] = (err, kernel_ms, plain_ms, work)
+                else:
+                    extra[f"{name}, {label}"] = (name, kernel_ms, work)
+        if outs:
+            check(torch.equal(outs["bitpal"], outs["bitpal_packed"]),
+                  f"bitpal != bitpal_packed at the {label}")
+            print(f"    bitpal and bitpal_packed equal at the {label} (max |diff| 0)")
+    return results, extra
 
 
 def phase_bitpal_golden(tmp):
@@ -1291,6 +1407,9 @@ PAIR_PACKED_GRID = [  # (q_len, s_len, k) of the packed pair
     (3, 5, 4),        # q_len < k (n_sub = 5): err starts at k
 ]
 PAIR_QUERIES = 4
+# the packed column's cost probes (no TPU twin: not in the kernels line)
+PACKED_PROBES = ("banded_packed_probe_full", "banded_packed_probe_static_c",
+                 "banded_packed_probe_noload")
 
 
 def pair_fns():
@@ -1305,6 +1424,10 @@ def pair_fns():
         fns[f"banded_probe_{mode}"] = (functools.partial(bpr.banded_probe, mode=mode),
                                        functools.partial(bpr.banded_probe_ref, mode=mode))
     fns["banded_packed_pair"] = (bpp.banded_packed_pair, bpp.banded_packed_pair_ref)
+    for mode in bpp.PROBE_MODES:
+        fns[f"banded_packed_probe_{mode}"] = (
+            functools.partial(bpp.banded_packed_probe, mode=mode),
+            functools.partial(bpp.banded_packed_probe_ref, mode=mode))
     return fns
 
 
@@ -1312,7 +1435,8 @@ def pair_launches():
     from bgsa_tpu_torch.ops import banded_packed_pair as bpp
     from bgsa_tpu_torch.ops import banded_pair as bpr
 
-    return {**bpr.LAUNCHES, "banded_packed_pair": bpp.LAUNCHES}
+    return {**bpr.LAUNCHES, "banded_packed_pair": bpp.LAUNCHES,
+            **{f"banded_packed_probe_{mode}": n for mode, n in bpp.PROBE_LAUNCHES.items()}}
 
 
 def reset_pair_launches():
@@ -1322,6 +1446,8 @@ def reset_pair_launches():
     bpp.LAUNCHES = 0
     for name in bpr.LAUNCHES:
         bpr.LAUNCHES[name] = 0
+    for mode in bpp.PROBE_LAUNCHES:
+        bpp.PROBE_LAUNCHES[mode] = 0
 
 
 def pair_compare(name, streams, qt, kw):
@@ -1346,12 +1472,12 @@ def phase_pair_kernels(rng):
 
     print("== phase 17: the paired-query kernels and the banded probes vs their plain versions, "
           "and each pair vs the kernel it pairs, on the card (tolerance 0)")
-    max_err = dict.fromkeys(PAIR_KERNELS, 0)
+    max_err = dict.fromkeys([*PAIR_KERNELS, *PACKED_PROBES], 0)
     before = pair_launches()
     stream_names = [name for name in PAIR_KERNELS if name != "banded_packed_pair"]
     for grid, names, shipping in (
             (PAIR_STREAM_GRID, stream_names, "banded_stream"),
-            (PAIR_PACKED_GRID, ["banded_packed_pair"], "banded_stream_packed")):
+            (PAIR_PACKED_GRID, ["banded_packed_pair", *PACKED_PROBES], "banded_stream_packed")):
         for m, n, k in grid:
             kw = dict(q_len=m, s_len=n, k=k)
             over = []
@@ -1446,6 +1572,13 @@ def phase_experiments(smi):
     rows["banded_packed_pair"] = (statistics.median(mix["kernel_ms"]["pair"]), plain_ms, err, Work(
         main_library(), {"n_sub": n_sub}, sum(live), roofline.io_bytes(streams, queries, out),
         None))
+    packed_ms = statistics.median(mix["kernel_ms"]["packed"])
+    for name, label in zip(PACKED_PROBES, ("p_full", "p_statc", "p_noload")):
+        _, plain_ms, err = against_plain(name, (streams, queries), kw)
+        ms = statistics.median(mix["kernel_ms"][label])
+        print(f"  {name:28s} kernel alone {ms:.4f} ms (median device time in a chain; the "
+              f"shipping packed kernel {packed_ms:.4f} ms); plain torch {plain_ms:.1f} ms, max "
+              f"|diff| {err} ({smi})")
     for name, (ms, plain_ms, err, work) in rows.items():
         print(f"  {name:21s} kernel alone {ms:.4f} ms (median device time in a chain); plain "
               f"torch {plain_ms:.1f} ms (one run), kernel vs plain max |diff| {err}; "
@@ -1483,6 +1616,29 @@ def phase_gpu_parity():
     check(rc == 0, f"gpu_parity exited {rc}")
 
 
+def library_sass(library, sass) -> dict:
+    """The SASS functions of a library, read once (``sass`` caches them)."""
+    from bgsa_tpu_torch import roofline
+
+    if library not in sass:
+        text = roofline.sass_text(library)
+        check(text is not None, "no cuobjdump: the kernels' SASS cannot be read")
+        sass[library] = roofline.sass_functions(text)
+    return sass[library]
+
+
+def design_sass(work, sass):
+    """Instructions per pipe of one trip of the design's own loop
+    (``Work.design``; BitPAl's tiled kernel: one word-column), or None."""
+    from bgsa_tpu_torch import roofline
+
+    if work.design is None:
+        return None
+    spec = roofline.SASS_SPECS[work.design]
+    return roofline.column_instructions(roofline.find_function(
+        library_sass(work.library, sass), spec.function.format(**work.shape)), spec)
+
+
 def kernel_bound(name, ms, work, sass, peak_ops_per_s):
     """(bound ms, "operations" or "bytes", pipe, instructions per column,
     JAX-op share) of one kernel row."""
@@ -1490,14 +1646,10 @@ def kernel_bound(name, ms, work, sass, peak_ops_per_s):
 
     if name not in roofline.SASS_SPECS:  # computes nothing: its bytes bound it
         return (*roofline.bound(0, work.nbytes, 1.0), None, None, None)
-    if work.library not in sass:
-        text = roofline.sass_text(work.library)
-        check(text is not None, "no cuobjdump: the kernels' SASS cannot be read")
-        sass[work.library] = roofline.sass_functions(text)
     spec = roofline.SASS_SPECS[name]
     per_column = roofline.column_instructions(
-        roofline.find_function(sass[work.library], spec.function.format(**work.shape)), spec,
-        inner_trips=work.inner_trips)
+        roofline.find_function(library_sass(work.library, sass),
+                               spec.function.format(**work.shape)), spec)
     instructions, rate, pipe = roofline.instruction_bound(
         per_column, work.columns, roofline.sm_count(), roofline.sm_clock_mhz())
     bound_ms, bound_by = roofline.bound(instructions, work.nbytes, rate)
@@ -1531,7 +1683,7 @@ def main() -> int:
             banded_times = phase_banded_bench(rng, smi)
             banded_launched, production_err = phase_banded_production(rng, tmp, smi)
             bitpal_err = phase_bitpal_kernels(rng)
-            bitpal_times = phase_bitpal_bench(rng, smi)
+            bitpal_times, bitpal_lines = phase_bitpal_bench(rng, smi)
             phase_bitpal_golden(tmp)
             bitpal_launched, bitpal_production_err = phase_bitpal_production(
                 rng, tmp, smi, inputs)
@@ -1552,8 +1704,9 @@ def main() -> int:
     # (name, source, replaces, launches on its path, max |diff|, ms, plain ms, Work)
     rows = [("myers_semiglobal", KERNEL_SOURCE, KERNEL_REPLACES, launches,
              max(max_err, bench_err), kernel_ms, plain_ms, myers_work)]
+    device = {}  # name -> device ms of a CUDA graph's replays, where taken
     for name, (source, replaces) in BANDED_KERNELS.items():
-        err, ms, plain, work = banded_times[name]
+        err, ms, plain, work, device[name] = banded_times[name]
         rows.append((name, source, replaces, banded_launched[name],
                      max(err, banded_err[name], production_err[name]), ms, plain, work))
     for name, (source, replaces) in BITPAL_KERNELS.items():
@@ -1577,9 +1730,12 @@ def main() -> int:
         for name, source, replaces, launched, err, ms, plain, work in rows:
             bound_ms, bound_by, pipe, per_column, jax_share = kernel_bound(
                 name, ms, work, sass, peak["ops_per_s"])
+            design = design_sass(work, sass)
             kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                             "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                            "device_ms": device.get(name), "state_bytes": work.state_bytes,
+                            "design_sass": design})
             if per_column is None:
                 how = "its bytes: it computes nothing, and its time is launch latency"
             else:
@@ -1587,8 +1743,24 @@ def main() -> int:
                        f"{per_column['fma']:.1f} FMA, {per_column['issue']:.1f} issued")
             if jax_share is not None:
                 how += f"; vs JAX-op count at the peak mix's rate {100 * jax_share:.1f} %"
+            if work.design:
+                how += (f" (the register network's, per word-column); the tiled kernel's own "
+                        f"{design['alu']:.1f} ALU, {design['issue']:.1f} issued, not in the bound")
+            if work.state_bytes:
+                how += f"; state {work.state_bytes / 1e9:.3f} GB through the scratch, not bound"
             print(f"  {name:21s} {ms:10.4f} ms, bound {bound_ms:10.4f} ms by {bound_by} "
                   f"({100 * bound_ms / ms:.1f} % of the time; {how}); launches {launched}")
+        for label, (name, ms, work) in bitpal_lines.items():  # the other BitPAl lines
+            bound_ms, bound_by, pipe, per_column, _ = kernel_bound(
+                name, ms, work, sass, peak["ops_per_s"])
+            design = design_sass(work, sass)
+            own = (f"; the tiled kernel's own {design['alu']:.1f} ALU, {design['issue']:.1f} "
+                   "issued, not in the bound" if design else "")
+            print(f"  {label}: {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({100 * bound_ms / ms:.1f} %; {pipe} pipe, register SASS per "
+                  f"{'word-' if work.design else ''}column {per_column['alu']:.1f} ALU, "
+                  f"{per_column['issue']:.1f} issued{own}; state "
+                  f"{work.state_bytes / 1e9:.3f} GB through the scratch)")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,25 +1,39 @@
-"""A/B of two checkouts on one GPU: the kernels whose launch bounds changed.
+"""A/B of two checkouts on one GPU: the kernels a change redesigned.
 
-    python3 probe_ab.py OTHER_CHECKOUT
+    python3 probe_ab.py OTHER_CHECKOUT [PART,...]
 
 Run from the root of this checkout on a machine with a CUDA GPU;
 OTHER_CHECKOUT is another checkout of the repository, for example the
 parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists. The two trees run in turns, other / this / this /
 other, each turn a child process started in its tree, so each builds and
-imports its own ``bgsa_tpu_torch``. A turn prints:
+imports its own ``bgsa_tpu_torch``. PART names what a turn runs
+(``bitpal``, ``cli``, ``banded``, ``generic``; default all four). A turn
+prints:
 
-- the registers and stack of every ``global31_regs`` and
-  ``banded_packed_kernel`` instance in the tree's main kernel library, from
-  ``cuobjdump -res-usage`` (it reads the library itself, so a cached one
-  too);
-- that tree's ``chip_smoke.py`` phase 14: the 31-bit and full-word Myers
-  kernels timed by CUDA events on the same subjects at the bench geometry
-  and at one production bucket;
-- the packed banded kernel timed by CUDA events (median of 20 after 3
-  warm-ups) on the filter mix (``chip_smoke.banded_inputs``) at the banded
-  bench line and at one production bucket, at 150 bp queries and k = 8
-  against 158 bp subjects (two fields a register) and 150 bp ones (three).
+- the registers, stack and shared memory of every ``banded_packed_kernel``
+  instance in the tree's main kernel library and (``bitpal``) of every
+  kernel in its (2,-3,-5) non-packed BitPAl library, from ``cuobjdump
+  -res-usage`` (it reads the library itself, so a cached one too);
+- ``bitpal``: the BitPAl kernels timed by CUDA events (median of 5 after a warm-up) on
+  the same subjects in both trees: (2,-3,-5) non-packed with 32-bit words
+  at the JAX bench's line (Q=40, m=500, S=32768, 500 bp) and at 1,100 bp
+  (S=8192), and packed with 31-bit words at the bench line (its register
+  path);
+- ``cli``: ``-k 8`` over 1,000,000 x 150 bp filter-mix subjects through
+  the CLI (``probe_banded.cli_runs``: three runs' RunStats, then one
+  profiled);
+- ``banded``: the packed banded kernel timed by CUDA events (median of 20
+  after 3 warm-ups), and its device time (20 launches captured in a CUDA
+  graph, each of 5 replays timed by CUDA events), on the filter mix
+  (``chip_smoke.banded_inputs``) at the banded bench line with 150 bp
+  queries and subjects at k = 10, 8, 6, 5 and 4 (2 to 6 fields a
+  register), and at one production bucket at k = 8 against 158 bp subjects
+  (two fields) and 150 bp ones (three);
+- ``generic``: the same for the generic instance (n_sub >= 7, the field
+  count a runtime argument) at the bench line's Q and S: n_sub 7 (150 bp
+  queries, 151 bp subjects, k = 3), 8 (100 bp, k = 3) and 16 (7 bp, k =
+  1); and at the bucket's, n_sub 7 and 8.
 
 Exits with the first failing turn's code.
 """
@@ -37,35 +51,81 @@ sys.path.insert(0, ".")
 import chip_smoke
 from bgsa_tpu_torch.banded_pipeline import BandedEngine
 from bgsa_tpu_torch.ops import banded_packed as bpk
+from bgsa_tpu_torch.ops import bitpal as tb
+from bgsa_tpu_torch.ops import bitpal_packed as tbp
 from bgsa_tpu_torch.ops import build
+parts = sys.argv[2].split(",")
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True, check=True).stdout.strip()
-usage = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-res-usage",
-                        build.load().path], capture_output=True, text=True, check=True).stdout
-print(f"{sys.argv[1]}: cuobjdump -res-usage of {os.path.basename(build.load().path)}")
-for name, res in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", usage):
-    if "global31_regs" in name or "banded_packed_kernel" in name:
-        print(f"  {name}: {res.strip()}")
+libs = [(build.load().path, "banded_packed_kernel")]
+if "bitpal" in parts:
+    libs.append((build.load_scheme("bitpal", 2, -3, -5).path, "kernel"))
+for path, pattern in libs:
+    usage = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-res-usage", path],
+                           capture_output=True, text=True, check=True).stdout
+    print(f"{sys.argv[1]}: cuobjdump -res-usage of {os.path.basename(path)}")
+    for name, res in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", usage):
+        if pattern in name:
+            print(f"  {name}: {res.strip()}")
+for label, fn, Q, m, S, n, wb in (
+        ("non-packed, bench line", tb.bitpal, 40, 500, 32768, 500, 32),
+        ("non-packed, 1,100 bp", tb.bitpal, 40, 500, 8192, 1100, 32),
+        ("packed, bench line", tbp.bitpal_packed, 40, 500, 32768, 500, 31)) * ("bitpal" in parts):
+    rng = np.random.default_rng(7)
+    qt = torch.from_numpy(rng.integers(0, 4, size=(Q, m)).astype(np.int32)).cuda()
+    eq = chip_smoke.device_eq(rng, S, n, wb)
+    kw = dict(match=2, mismatch=-3, gap=-5, read_len=n, word_bits=wb)
+    out = fn(eq, qt, **kw)
+    ms = chip_smoke.cuda_times_ms(lambda: fn(eq, qt, **kw), runs=5, warmup=1)
+    print(f"  BitPAl (2,-3,-5) {label}: Q={Q} m={m} S={S} n={n} {wb}-bit W={eq.shape[1]}: "
+          f"kernel median {statistics.median(ms):.4f} ms of 5 ({min(ms):.4f}-{max(ms):.4f}); "
+          f"output checksum {int(out.long().sum())} ({smi})")
+if "cli" in parts:
+    import tempfile
+    import probe_banded
+    with tempfile.TemporaryDirectory(prefix="bgsa_ab_") as tmp:
+        probe_banded.cli_runs(tmp)
 rng = np.random.default_rng(2026)
-chip_smoke.phase_myers_global_bench(rng, smi)
-m, k = 150, 8
-engine = BandedEngine(k, device="cuda")
-for label, Q, S in chip_smoke.BANDED_TIMED:
-    for n in (158, 150):
+lines = []  # (label, Q, S, [(m, n, k), ...])
+for label, Q, S in chip_smoke.BANDED_TIMED * ("banded" in parts):
+    # n_sub 2..6 at the bench line (150 bp, k = 10, 8, 6, 5, 4); at the
+    # bucket two fields (158 bp) and three
+    lines.append((label, Q, S, [(150, 150, k) for k in (10, 8, 6, 5, 4)]
+                  if label == chip_smoke.BANDED_TIMED[0][0] else [(150, 158, 8), (150, 150, 8)]))
+if "generic" in parts:  # n_sub 7, 8 and 16
+    label, Q, S = chip_smoke.BANDED_TIMED[0]
+    lines.append((label, Q, S, [(150, 151, 3), (100, 100, 3), (7, 7, 1)]))
+    label, Q, S = chip_smoke.BANDED_TIMED[1]
+    lines.append((label, Q, S, [(150, 151, 3), (100, 100, 3)]))
+for label, Q, S, geometries in lines:
+    for m, n, k in geometries:
+        engine = BandedEngine(k, device="cuda")
         q, s = chip_smoke.banded_inputs(rng, Q, m, S, n, k, "mix")
         codes, qt = torch.from_numpy(s).cuda(), torch.from_numpy(q).cuda()
         args = engine.kernel_args("banded_stream_packed", codes, m)
         kw = dict(q_len=m, s_len=n, k=k)
-        ms = statistics.median(chip_smoke.cuda_times_ms(
-            lambda: bpk.banded_stream_packed(*args, qt, **kw), runs=20, warmup=3))
+        run = lambda: bpk.banded_stream_packed(*args, qt, **kw)
+        checksum = int(run().long().sum())
+        ms = statistics.median(chip_smoke.cuda_times_ms(run, runs=20, warmup=3))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                run()
+        dev = [t / 20 for t in chip_smoke.cuda_times_ms(graph.replay, runs=5, warmup=1)]
         print(f"  packed banded, {label}: Q={Q} S={S} m={m} n={n} k={k} "
-              f"n_sub={bpk.packed_subbands(m, n, k)}: kernel median {ms:.4f} ms over 20 runs "
-              f"({smi})")
+              f"n_sub={bpk.packed_subbands(m, n, k)}: kernel median {ms:.4f} ms over 20 runs; "
+              f"device time {statistics.median(dev):.4f} ms ({min(dev):.4f}-{max(dev):.4f}; a "
+              f"CUDA graph of 20 launches, 5 replays); output checksum {checksum} ({smi})")
 """
 
 
+PARTS = ("bitpal", "cli", "banded", "generic")
+
+
 def main(argv) -> int:
-    if len(argv) != 1 or not os.path.isfile(os.path.join(argv[0], "chip_smoke.py")):
+    parts = argv[1] if len(argv) == 2 else ",".join(PARTS)
+    if (len(argv) not in (1, 2) or not os.path.isfile(os.path.join(argv[0], "chip_smoke.py"))
+            or not set(parts.split(",")) <= set(PARTS)):
         print(__doc__, file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
@@ -73,7 +133,7 @@ def main(argv) -> int:
     rc = 0
     for label, tree in (("other", other), ("this", here), ("this", here), ("other", other)):
         print(f"== {label}: {tree}", flush=True)
-        code = subprocess.run([sys.executable, "-c", TURN, label], cwd=tree).returncode
+        code = subprocess.run([sys.executable, "-c", TURN, label, parts], cwd=tree).returncode
         rc = rc or code
     return rc
 

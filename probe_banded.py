@@ -75,8 +75,8 @@ def generic_kernels(tmp):
     shutil.copytree(build.CSRC_DIR, src)
     path = os.path.join(src, "banded_packed.cu")
     with open(path) as f:
-        text, n = re.subn(r"switch \(n_sub\) \{.*?\n  \}\n", "BGSA_PACKED_LAUNCH(0);\n", f.read(),
-                          flags=re.S)
+        text, n = re.subn(r"switch \(n_sub\) \{.*?\n  \}\n", "return BGSA_PACKED_LAUNCH(0);\n",
+                          f.read(), flags=re.S)
     if n != 1:
         raise RuntimeError("banded_packed.cu: no n_sub dispatch switch to replace")
     with open(path, "w") as f:

@@ -129,6 +129,37 @@ def test_failed_scheme_build_raises(tmp_path, monkeypatch):
         build.load_scheme("myers_semiglobal", 2, -3, -5)
 
 
+def test_scheme_libraries_are_cached_one_per_kernel_and_scheme(monkeypatch):
+    # the recorded decision: the cache mirrors bgsa_tpu's per-scheme growth
+    # (one library per kernel and scheme, never per config, never unloaded),
+    # with no cap: the mode, word layout and shapes are launch arguments
+    builds = []
+
+    def fake_compile(sources, out_dir, *, stem, tag, defines):
+        builds.append((stem, tag))
+        return f"{out_dir}/lib{stem}-{tag}.so", "", 1.0
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = (lambda: 8) if name == "bgsa_reg_words" else (lambda: 32)
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(build, "compile_library", fake_compile)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: Lib())
+    monkeypatch.setattr(build, "_scheme_kernels", {})
+    monkeypatch.setattr(build, "_scheme_locks", {})
+    first = build.load_scheme("bitpal", 2, -3, -5)
+    assert build.load_scheme("bitpal", 2, -3, -5) is first and len(builds) == 1
+    assert (first.reg_words, first.tile_columns) == (8, 32)
+    schemes = [(m, -1, -1 - g) for m in range(1, 5) for g in range(4)]
+    for scheme in schemes:
+        build.load_scheme("bitpal", *scheme)
+        build.load_scheme("bitpal_packed", *scheme)
+    assert len(build._scheme_kernels) == 1 + 2 * len(schemes) == len(builds)
+    assert ("bgsa_bitpal_packed", "M2_I-1_G-2") in builds
+
+
 def test_importing_the_port_builds_nothing():
     import bgsa_tpu_torch.api  # noqa: F401
     import bgsa_tpu_torch.banded_pipeline  # noqa: F401
@@ -148,13 +179,25 @@ def test_importing_the_port_builds_nothing():
 
 def test_the_paired_query_and_kprint_sources_are_built():
     new = {"banded_pair.cu": ("bgsa_banded_stream_pair", "bgsa_banded_probe"),
-           "banded_packed_pair.cu": ("bgsa_banded_packed_pair",),
+           "banded_packed_pair.cu": ("bgsa_banded_packed_pair", "bgsa_banded_packed_probe"),
            "kprint_probe.cu": ("bgsa_kprint_probe",)}
     assert set(new) <= set(build.SOURCES)
     for source, entry_points in new.items():
         with open(os.path.join(build.CSRC_DIR, source)) as f:
             text = f.read()
         assert all(f"int {fn}(" in text and fn in build._SIGNATURES for fn in entry_points)
+
+
+def test_every_scheme_signature_matches_its_c_definition():
+    # the per-scheme libraries' entry points, as test below for the main one
+    import re
+
+    for kernel, argtypes in build._SCHEME_SIGNATURES.items():
+        with open(os.path.join(build.CSRC_DIR, f"{kernel}.cu")) as f:
+            text = f.read()
+        params = re.search(rf"^int bgsa_{kernel}\(([^)]*)\)", text, re.M).group(1)
+        assert params.count(",") + 1 == len(argtypes), kernel
+        assert re.search(r"^int bgsa_tile_columns\(\)", text, re.M), kernel
 
 
 def test_every_signature_matches_its_c_definition():

@@ -73,7 +73,8 @@ def test_build_failure_raises(cuda, tmp_path):
 
 
 # (q_len, s_len, k) of every banded route and edge
-BANDED_PACKED = [(150, 158, 8), (150, 150, 8), (100, 100, 4), (40, 44, 4), (3, 5, 4)]
+BANDED_PACKED = [(150, 158, 8), (150, 150, 8), (100, 100, 4), (40, 44, 4), (3, 5, 4),
+                 (100, 100, 3), (7, 7, 1)]  # n_sub 8 and 16: the generic instance
 BANDED_STREAM = [(150, 150, 16), (150, 181, 16), (150, 150, 1), (70, 70, 0)]
 BANDED_DUAL = [(100, 95, 20), (150, 148, 8), (41, 30, 20), (100, 99, 31)]
 BANDED_PEQ = [(50, 20, 40), (55, 20, 40), (150, 150, 8)]
@@ -160,8 +161,9 @@ def test_banded_engine_cuda_matches_cpu(cuda, m, n, k):
 # -- BitPAl ------------------------------------------------------------------
 
 # a scheme of each shape: the bench scheme, small and zero-match lattices,
-# an unpacked-only scheme and a wide one (28 planes unpacked)
-BITPAL_SCHEMES = [(2, -3, -5), (1, -1, -1), (0, -2, -3), (5, -1, -2), (5, -4, -11)]
+# an unpacked-only scheme and two wide ones (28 and 26 planes unpacked;
+# (5,-4,-10)'s carries take two words)
+BITPAL_SCHEMES = [(2, -3, -5), (1, -1, -1), (0, -2, -3), (5, -1, -2), (5, -4, -11), (5, -4, -10)]
 
 
 def bitpal_kernels(M, I, G):
@@ -215,6 +217,14 @@ def test_bitpal_scratch_path_matches_plain(bitpal_cuda, M, I, G):
     kernels = build.load_all([(name, M, I, G) for name, _, _ in bitpal_kernels(M, I, G)])[1]
     assert all(k.reg_words < 36 for k in kernels)
     bitpal_vs_plain(bitpal_cuda, M, I, G, 1100, m=4, S=200)
+
+
+@pytest.mark.parametrize("n", [500, 1100])
+@pytest.mark.parametrize("M,I,G", [(2, -3, -5), (5, -4, -10)])
+def test_bitpal_tiled_kernel_across_tiles_matches_plain(bitpal_cuda, M, I, G, n):
+    # 40 query columns over the 32-column tile: the planes kept in the
+    # scratch between tiles, a last tile of 8 columns
+    bitpal_vs_plain(bitpal_cuda, M, I, G, n, m=40, S=200, seed=n)
 
 
 @pytest.mark.parametrize("S", [1, 129, 1000])
@@ -310,7 +320,8 @@ def test_banded_engine_on_two_shards_of_the_card(cuda, m, n, k):
     ("banded_stream", {}, None), ("banded_stream_dual", {}, None), ("banded", {}, None),
     ("banded_stream_packed", {"n_sub": 3}, None), ("int_peak", {"chains": 16}, None),
     ("bitpal_packed", {"bits": 31, "W": 17}, "bitpal_packed"),
-    ("bitpal", {"bits": 32, "W": 0}, "bitpal"),
+    ("bitpal", {"bits": 32, "W": 5}, "bitpal"), ("bitpal_tiled", {"bits": 32}, "bitpal"),
+    ("bitpal_packed_tiled", {"bits": 31}, "bitpal_packed"),
     ("banded_stream_pair", {}, None), ("banded_probe_full", {}, None),
     ("banded_probe_static_c", {}, None), ("banded_probe_noload", {}, None),
     ("banded_packed_pair", {"n_sub": 3}, None),
@@ -325,7 +336,7 @@ def test_sass_column_loop_of_every_kernel(cuda, name, shape, library):
         pytest.skip("the CUDA toolkit has no cuobjdump")
     spec = roofline.SASS_SPECS[name]
     ins = roofline.find_function(roofline.sass_functions(text), spec.function.format(**shape))
-    per = roofline.column_instructions(ins, spec, inner_trips=16 if shape.get("W") == 0 else 0)
+    per = roofline.column_instructions(ins, spec)
     assert 0 < per["alu"] <= per["issue"] and 0 <= per["fma"] <= per["issue"]
 
 
@@ -391,6 +402,22 @@ def test_packed_pair_matches_plain_and_packed(cuda, m, n, k, kind, S):
     assert torch.equal(got, bp.banded_stream_packed(streams, qt, **kw))
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,k", PAIR_PACKED)
+def test_packed_probes_match_plain(cuda, m, n, k, kind):
+    q, s = banded_inputs(m + n + k, m, n, k, kind, S=600, Q=3)
+    streams = BandedEngine(k, PipelineConfig(), cuda).kernel_args(
+        "banded_stream_packed", torch.from_numpy(s).to(cuda), m)[0]
+    qt = torch.from_numpy(q).to(cuda)
+    kw = dict(q_len=m, s_len=n, k=k)
+    for mode in bpp.PROBE_MODES:
+        before = bpp.PROBE_LAUNCHES[mode]
+        got = bpp.banded_packed_probe(streams, qt, mode=mode, **kw)
+        torch.cuda.synchronize()
+        assert bpp.PROBE_LAUNCHES[mode] == before + 1
+        assert torch.equal(got, bpp.banded_packed_probe_ref(streams, qt, mode=mode, **kw)), mode
+
+
 def test_kprint_probe_prints_and_copies(cuda, capfd):
     x = torch.arange(8 * 128, dtype=torch.int32, device=cuda).reshape(8, 128)
     before = debug.LAUNCHES
@@ -418,6 +445,9 @@ def test_the_experiments_find_their_kernels_in_the_profiler(cuda):
     for name, run in runs.items():
         assert len(kernel_times({name: run}, pair_exp.KERNELS, cuda, 1)[name]) == 1, name
     streams = bp.pack_packed_streams(codes, 8, 150, 3)
-    for name, run in (("packed", lambda: bp.banded_stream_packed(streams, qt, **kw)),
-                      ("pair", lambda: bpp.banded_packed_pair(streams, qt, **kw))):
+    packed_runs = {"packed": lambda: bp.banded_stream_packed(streams, qt, **kw),
+                   "pair": lambda: bpp.banded_packed_pair(streams, qt, **kw)}
+    for label, mode in packed_exp.PROBES.items():
+        packed_runs[label] = lambda mode=mode: bpp.banded_packed_probe(streams, qt, mode=mode, **kw)
+    for name, run in packed_runs.items():
         assert len(kernel_times({name: run}, packed_exp.KERNELS, cuda, 1)[name]) == 1, name

@@ -93,7 +93,8 @@ def test_exp_banded_pair_on_the_cpu(small_experiments, capsys):
 def test_exp_banded_packed_pair_on_the_cpu(small_experiments, capsys, kind):
     assert exp_banded_packed_pair.main([kind, "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert sorted(line.split(":")[0] for line in lines) == [f"[{kind}] packed", f"[{kind}] pair  "]
+    assert sorted(line.split(":")[0].strip() for line in lines) == [
+        f"[{kind}] {name}" for name in ("p_full", "p_noload", "p_statc", "packed", "pair")]
 
 
 def test_experiment_gates_fail_loudly(small_experiments, monkeypatch, capsys):

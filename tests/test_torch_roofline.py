@@ -291,19 +291,51 @@ def test_sass_banded_kernel_takes_the_shortest_path_with_code_checks_falling_thr
     assert roofline.column_instructions(ins, every) == {"issue": 8, "alu": 3, "fma": 0.5}
 
 
-def test_sass_nested_word_loop_counts_its_trips():
+def test_sass_nested_loop_counts_one_trip():
+    # a loop inside the column loop (the packed banded kernel's window load)
+    # counts one trip where the path runs through it, and none where a branch
+    # the shortest path takes skips it: a floor either way
     body = [("", "LDS.U8 R122, [R40+UR4]", "c"), ("", "LOP3.LUT R1, R2, R3, RZ, 0xc0, !PT"),
             ("", "LDG.E R5, desc[UR4][R6.64]", "w"), ("", "IMAD R5, R5, 0x2, RZ"),
             ("", "SHF.L.U32 R5, R5, 0x1, RZ"), ("", "STG.E desc[UR4][R6.64], R5"),
             ("@!P1", "BRA @w"), ("", "IADD3 R2, R2, 0x1, RZ"), ("@!P0", "BRA @c"), ("", "EXIT")]
     ins = roofline.sass_functions(listing("_ZN6bitpal13bitpal_kernelIELi32ELi0EEEv", body))
     ins = roofline.find_function(ins, "ELi32ELi0EE")
-    per = roofline.column_instructions(ins, roofline.SASS_SPECS["bitpal"], inner_trips=16)
-    # outer: LDS, LOP3, IADD3, BRA = 4 issued, 2 ALU; inner x 16: 5 issued,
-    # 1 ALU (SHF), 1 FMA
-    assert per == {"issue": 4 + 16 * 5, "alu": 2 + 16, "fma": 16}
-    with pytest.raises(ValueError, match="nested loops"):
-        roofline.column_instructions(ins, roofline.SASS_SPECS["bitpal"])
+    per = roofline.column_instructions(ins, roofline.SASS_SPECS["bitpal"])
+    # LDS, LOP3, one trip of LDG, IMAD, SHF, STG, BRA, then IADD3, BRA
+    assert per == {"issue": 9, "alu": 3, "fma": 1}
+    skip = body[:2] + [("@P2", "BRA @s")] + body[2:7] + [(*body[7][:2], "s")] + body[8:]
+    ins = roofline.sass_functions(listing("_ZN4anon20banded_packed_kernelILi3EEEv", skip))
+    per = roofline.column_instructions(
+        roofline.find_function(ins, "banded_packed_kernelILi3E"),
+        roofline.SASS_SPECS["banded_stream_packed"])
+    # the shortest path takes @P2 over the loop: LDS, LOP3, BRA, IADD3, BRA
+    assert per == {"issue": 5, "alu": 2, "fma": 0}
+
+
+def test_sass_tiled_kernel_counts_one_word_column():
+    # bitpal_tiled_kernel: a word loop (planes loaded and stored) around the
+    # column loop (the code from shared memory, the carry slot loaded and
+    # stored, the network); one trip of the inner loop is one word-column
+    body = [("", "LDG.E R20, desc[UR4][R6.64]", "w"), ("", "LOP3.LUT R9, R20, R8, RZ, 0xc0, !PT")]
+    body += [("", "LDS.U8 R12, [R3+UR4]", "c"), ("", "LDS R13, [R5]"),
+             ("", "LDG.E.CONSTANT R14, desc[UR4][R10.64]"),
+             ("", "LOP3.LUT R15, R13, 0x1, RZ, 0xc0, !PT"), ("", "IADD3 R16, R14, R15, R20"),
+             ("", "IMAD.SHL.U32 R17, R16, 0x2, RZ"), ("", "STS [R5], R17"),
+             ("", "VIADD R3, R3, 0x1"), ("@!P0", "BRA @c")]
+    body += [("", "STG.E desc[UR4][R6.64], R20"), ("@!P1", "BRA @w"), ("", "EXIT")]
+    name = ("_ZN6bitpal19bitpal_tiled_kernelINS_12_GLOBAL__N_18UnpackedILi2ELin3ELin5ELi32EEE"
+            "Li32EEEvPKjPKhPiPjiiiiiiii")
+    other = "_ZN6bitpal13bitpal_kernelINS_8UnpackedILi2ELin3ELin5ELi32EEELi32ELi32EEEvPKj"
+    functions = roofline.sass_functions(listing(name, body) + listing(other, word_kernel(1)))
+    spec = roofline.SASS_SPECS["bitpal_tiled"]
+    ins = roofline.find_function(functions, spec.function.format(bits=32))
+    assert ins is functions[name]  # the regular expression skips the register instance
+    with pytest.raises(ValueError, match="0 SASS functions"):
+        roofline.find_function(functions, spec.function.format(bits=31))
+    per = roofline.column_instructions(ins, spec)
+    # LDS.U8, LDS, LDG, LOP3, IADD3, IMAD, STS, VIADD, BRA
+    assert per == {"issue": 9, "alu": 2, "fma": 1}
 
 
 def test_sass_peak_kernel_step_from_its_main_loop():
