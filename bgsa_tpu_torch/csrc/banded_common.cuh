@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace bgsa_banded {
@@ -49,6 +50,55 @@ __device__ __forceinline__ uint64_t stream_window(const uint32_t* __restrict__ p
   const uint32_t w1 = stream_word(p, w + 1, W, S);
   const uint32_t w2 = stream_word(p, w + 2, W, S);
   return (static_cast<uint64_t>(__funnelshift_r(w1, w2, b)) << 32) | __funnelshift_r(w0, w1, b);
+}
+
+// The window fold of the stream kernels (banded.cu; stream_window is the
+// per-column form it replaced, kept for the paired-query kernel and the
+// probes). Within the 32-column window w = t >> 5 every code's words w, w + 1
+// (and w + 2 where the window's high half is needed) are fixed, so a thread
+// loads them once a window into its shared-memory slot, one StreamSlot per
+// code at slot[c * kThreads] (slot pointing at its own column of the block's
+// slots, so neighbouring threads take neighbouring 8- or 16-byte words), and
+// a column reads its code's words in one LDS.64 or LDS.128 and funnel-shifts
+// them by t & 31. Wide: the high word too (band_down >= 32, or the dual
+// kernel's preload stream A, whose window is taken whole). Slot kChars is
+// zero, set once a launch: the staged query row clamps codes above 4 to it,
+// so they match nothing without a check a column.
+constexpr int kSlotCodes = kChars + 1;
+
+template <bool Wide>
+using StreamSlot = typename std::conditional<Wide, uint4, uint2>::type;
+
+template <bool Wide>
+__device__ __forceinline__ void load_stream_slot(StreamSlot<Wide>* __restrict__ slot,
+                                                 const uint32_t* __restrict__ base, size_t plane,
+                                                 int w, int W, int S) {
+#pragma unroll
+  for (int c = 0; c < kChars; ++c) {
+    const uint32_t* p = base + c * plane;
+    if constexpr (Wide) {
+      slot[c * kThreads] = make_uint4(stream_word(p, w, W, S), stream_word(p, w + 1, W, S),
+                                      stream_word(p, w + 2, W, S), 0u);
+    } else {
+      slot[c * kThreads] = make_uint2(stream_word(p, w, W, S), stream_word(p, w + 1, W, S));
+    }
+  }
+}
+
+// Column t's window (bits b = t & 31 on of the loaded words) for query code
+// c in 0..kChars (kChars: the zero slot), masked. Narrow: the low half only,
+// which is the whole window where mask < 2^32. stream_window(...) & mask, bit
+// for bit.
+template <bool Wide>
+__device__ __forceinline__ uint64_t fold_stream_slot(const StreamSlot<Wide>* __restrict__ slot,
+                                                     int c, int b, uint64_t mask) {
+  const StreamSlot<Wide> v = slot[c * kThreads];
+  if constexpr (Wide) {
+    return ((static_cast<uint64_t>(__funnelshift_r(v.y, v.z, b)) << 32) |
+            __funnelshift_r(v.x, v.y, b)) & mask;
+  } else {
+    return __funnelshift_r(v.x, v.y, b) & static_cast<uint32_t>(mask);
+  }
 }
 
 // Myers band recurrence on one column's Eq window (banded.py::_band_update):

@@ -3,7 +3,7 @@
 // Replaces the two Pallas TPU kernels of scripts/exp_banded_pair.py:
 //   * _stream_kernel_pair (launched by banded_stream_pair): two queries' band
 //     recurrences in one grid cell; here banded_stream_pair_kernel, equal to
-//     banded_stream_kernel<false> (banded.cu) bit for bit;
+//     banded_stream_kernel<false, Wide> (banded.cu) bit for bit;
 //   * _probe_kernel (launched by banded_probe): the column with parts
 //     switched off; here banded_probe_kernel<Mode>, one instance per mode.
 // The experiment asks whether the stream kernel is bound by its one serial
@@ -23,7 +23,8 @@
 //     (rows 2p and 2p + 1). The two states run through one column loop built
 //     from banded_common.cuh's stream_window, band_update and band_epilogue;
 //     dead is latched at the checkpoints (chk) and at 32-column boundaries up
-//     to the last checkpoint, as the stream kernel latches, and a warp leaves
+//     to the last checkpoint (the stream kernel's per-column form, before its
+//     window fold: the same outcome), and a warp leaves
 //     the loop when __all_sync sees both states dead in every lane (the JAX
 //     kernel's both_dead). Lanes past S follow their warp as dead lanes.
 //   * probe: one thread per (query, subject), every column run: no checkpoint

@@ -16,7 +16,11 @@ queries as a batch dimension, the band register as native int64 (the TPU's
 (lo, hi) uint32 pairs become one word). int64 ``>>`` is arithmetic, so every
 right shift goes through ``shr``. Each wrapper runs its plain version for a
 CPU tensor and launches its hand-written kernel (``csrc/banded.cu``) for a
-CUDA tensor, counting launches in ``LAUNCHES[name]``.
+CUDA tensor, counting launches in ``LAUNCHES[name]``. The stream kernels
+fold each column from a window loaded once per 32 columns and latch over
+budget at other columns than the reference; ``windowed_stream_columns`` and
+``windowed_stream_ref`` are that schedule in plain torch, used by the tests
+only.
 
 The geometry helpers (``geometry``, ``chk_array``) mirror the JAX module's
 ``_geometry``/``_chk_array``, which cannot be imported here: that module
@@ -125,16 +129,18 @@ def _epilogue(vp, vn, err, dead, h):
     return torch.where(dead, MAX_ERROR, mn).to(torch.int32)
 
 
-def _scan(queries, S, window_at, *, q_len, s_len, k, live=None, threads=None, latch=True):
+def _scan(queries, S, window_at, *, q_len, s_len, k, live=None, threads=None, chk=None):
     """Run the band over the columns for (Q, S) pairs: window_at(c, t) gives
     column t's Eq window (Q, S) int64 for the query characters c (Q,).
     ``live``, a list, receives the count of pairs not yet over budget before
     each column (the work the reference's checkpoints leave to do), or with
     ``threads`` (the (Q, S) over-budget mask -> a kernel's threads' masks,
     a thread being over budget when all its pairs are) the count of such
-    threads. ``latch`` False: no checkpoint latches a pair (no 127)."""
+    threads. ``chk``: (q_len,), 1 at the columns after which a pair over
+    budget is latched (default the reference's checkpoints, ``chk_array``)."""
     h, _, max_err = geometry(q_len, s_len, k)
-    chk = chk_array(q_len, s_len, k) if latch else np.zeros(q_len, np.int32)
+    if chk is None:
+        chk = chk_array(q_len, s_len, k)
     q = queries.long()
     vp = vn = torch.zeros((q.shape[0], S), dtype=torch.int64, device=q.device)
     err = torch.full_like(vp, k)
@@ -169,10 +175,10 @@ def banded_stream_ref(stream, queries, *, q_len: int, s_len: int, k: int, live=N
                  live=live, threads=threads)
 
 
-def banded_stream_dual_ref(streams, queries, *, q_len: int, s_len: int, k: int):
-    """Plain torch version. streams (2, 5, W, S) int32 (preload A, injections
-    B), queries (Q, m) -> (Q, S) int32. Column t's register is
-    A[t + j] | (B[t + j] & (j <= band_down)); A is empty past position 2k."""
+def dual_window_at(streams, q_len: int, s_len: int, k: int):
+    """window_at(c, t) of ``_scan`` for (2, 5, W, S) int32 streams (preload
+    A, injections B): A[t + j] | (B[t + j] & (j <= band_down)), A read only
+    for t <= 2k (it is empty past position 2k)."""
     _, band_down, _ = geometry(q_len, s_len, k)
     st = _padded_stream(streams, q_len)
     mask = const64((1 << (band_down + 1)) - 1)
@@ -181,8 +187,85 @@ def banded_stream_dual_ref(streams, queries, *, q_len: int, s_len: int, k: int):
         eq = _window(st[1], c, t) & mask
         return eq | _window(st[0], c, t) if t <= 2 * k else eq
 
-    return _scan(queries.to(streams.device), streams.shape[-1], window_at,
-                 q_len=q_len, s_len=s_len, k=k)
+    return window_at
+
+
+def banded_stream_dual_ref(streams, queries, *, q_len: int, s_len: int, k: int):
+    """Plain torch version. streams (2, 5, W, S) int32 (preload A, injections
+    B), queries (Q, m) -> (Q, S) int32 (``dual_window_at``)."""
+    return _scan(queries.to(streams.device), streams.shape[-1],
+                 dual_window_at(streams, q_len, s_len, k), q_len=q_len, s_len=s_len, k=k)
+
+
+# -- the stream kernels' schedule (csrc/banded.cu), used by the tests ----------
+
+
+def column_eq(fields, codes):
+    """Each row's Eq register for its query code: (5, S) registers x (Q,)
+    codes -> (Q, S); codes outside 0..4 match nothing."""
+    codes = codes.long()
+    picked = fields[codes.clamp(0, CHAR_NUM - 1)]
+    return torch.where((codes < CHAR_NUM)[:, None], picked, torch.zeros_like(picked))
+
+
+def _slot(st, w: int, n: int) -> list:
+    """A window's load (``load_stream_slot``): words w .. w + n - 1 of every
+    code of st (5, W, S) int64, 0 past W."""
+    return [st[:, w + i] if w + i < st.shape[1] else torch.zeros_like(st[:, 0])
+            for i in range(n)]
+
+
+def _fold(slot: list, b: int) -> torch.Tensor:
+    """(``fold_stream_slot``) every code's window at bit b of a loaded slot:
+    the low half from words 0, 1, and from words 1, 2 the high half where
+    the slot holds three."""
+    half = [shr(slot[i] | (slot[i + 1] << 32), b) & MASK32 for i in range(len(slot) - 1)]
+    return half[0] | (half[1] << 32) if len(half) == 2 else half[0]
+
+
+def windowed_stream_columns(streams, *, q_len: int, s_len: int, k: int, dual: bool = False):
+    """The stream kernels' columns in their schedule: 32-column batches from
+    t = 0, each the stream's window w = t >> 5, whose slot holds every code's
+    words w, w + 1 and, where band_down >= 32, w + 2 (the narrow instance
+    reads the low half only); the dual kernel's columns t <= 2k also fold
+    the preload stream A's whole window from a second slot, loaded in the
+    windows those columns reach. streams (5, W, S) or (dual) (2, 5, W, S)
+    int32 -> yields (t, every code's Eq register at t, (5, S) int64)."""
+    _, band_down, _ = geometry(q_len, s_len, k)
+    st = streams.long() & MASK32
+    a, b = (st[0], st[1]) if dual else (None, st)
+    mask = const64((1 << (band_down + 1)) - 1)
+    head_end = min(2 * k + 1, q_len) if dual else 0
+    for t0 in range(0, q_len, WORD_BITS):
+        b_slot = _slot(b, t0 >> 5, 3 if band_down >= 32 else 2)
+        a_slot = _slot(a, t0 >> 5, 3) if t0 < head_end else None
+        for t in range(t0, min(t0 + WORD_BITS, q_len)):
+            eq = _fold(b_slot, t & 31) & mask
+            yield t, eq | _fold(a_slot, t & 31) if t < head_end else eq
+
+
+def kernel_latch_array(q_len: int, s_len: int, k: int) -> np.ndarray:
+    """(q_len,) int32, 1 at column t when the stream kernels latch after it:
+    the 32-column batch ends <= the last checkpoint, and the last checkpoint
+    (err is nondecreasing, so the outcome is the reference's)."""
+    last = last_checkpoint(q_len, s_len, k)
+    return np.array([(t + 1) % WORD_BITS == 0 and t + 1 <= last or t + 1 == last
+                     for t in range(q_len)], np.int32)
+
+
+def windowed_stream_ref(streams, queries, *, q_len: int, s_len: int, k: int, dual: bool = False):
+    """The stream kernels' schedule end to end: every column's register from
+    ``windowed_stream_columns`` and dead latched at ``kernel_latch_array``;
+    equal to ``banded_stream_ref`` / ``banded_stream_dual_ref``."""
+    columns = windowed_stream_columns(streams, q_len=q_len, s_len=s_len, k=k, dual=dual)
+
+    def window_at(c, t):
+        t_col, eq = next(columns)
+        assert t_col == t
+        return column_eq(eq, c)
+
+    return _scan(queries.to(streams.device), streams.shape[-1], window_at, q_len=q_len,
+                 s_len=s_len, k=k, chk=kernel_latch_array(q_len, s_len, k))
 
 
 def banded_ref(init_lo, init_hi, inj, queries, *, q_len: int, s_len: int, k: int):
@@ -269,10 +352,8 @@ def _launch_stream(name, stream, queries, *, q_len, s_len, k, dual):
         return out
     stream = stream.contiguous()
     q = queries.to(device=dev, dtype=torch.uint8).contiguous()
-    chk = _upload_chk(q_len, s_len, k, dev)
-    args = (stream.data_ptr(), q.data_ptr(), chk.data_ptr(), out.data_ptr(),
-            Q, q_len, W, S, k, h, band_down, max_err, last_checkpoint(q_len, s_len, k),
-            int(dual))
+    args = (stream.data_ptr(), q.data_ptr(), out.data_ptr(), Q, q_len, W, S, k, h, band_down,
+            max_err, last_checkpoint(q_len, s_len, k), int(dual))
     launch(name, "bgsa_banded_stream", out, args)
     LAUNCHES[name] += 1
     return out

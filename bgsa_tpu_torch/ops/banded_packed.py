@@ -31,8 +31,8 @@ import torch
 from ..banded_ref import MAX_ERROR
 from ..pack import CHAR_NUM
 
-from .banded import (MASK32, WORD_BITS, _check_queries, _device_of, const64, geometry,
-                     last_checkpoint, launch, shr)
+from .banded import (MASK32, WORD_BITS, _check_queries, _device_of, column_eq, const64,
+                     geometry, last_checkpoint, launch, shr)
 
 # Kernel launches made by ``banded_stream_packed`` (CUDA tensors only).
 LAUNCHES = 0
@@ -127,14 +127,6 @@ def fold_window(slots, b: int, pitch: int, wmask: int):
     window: (n_sub, 5, S_sub) pairs -> (5, S_sub) int64."""
     wins = shr(slots, b) & wmask
     return sum(wins[j] << (pitch * j) for j in range(slots.shape[0]))  # disjoint fields
-
-
-def column_eq(fields, codes):
-    """Each row's Eq register for its query code: (5, S_sub) fields x (Q,)
-    codes -> (Q, S_sub); codes outside 0..4 match nothing."""
-    codes = codes.long()
-    picked = fields[codes.clamp(0, CHAR_NUM - 1)]
-    return torch.where((codes < CHAR_NUM)[:, None], picked, torch.zeros_like(picked))
 
 
 def windowed_columns(st, *, q_len: int, s_len: int, k: int):

@@ -25,6 +25,7 @@ subject and query pair (or query), as ``ops.banded``'s do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .banded import (_scan, _upload_chk, banded_stream_ref, check_stream_args, geometry,
@@ -73,7 +74,7 @@ def banded_probe_ref(stream, queries, *, q_len: int, s_len: int, k: int, mode: s
         def window_at(c, t):
             return full(c if mode == "full" else torch.zeros_like(c), t)
     return _scan(queries.to(stream.device), S, window_at, q_len=q_len, s_len=s_len, k=k,
-                 latch=False)
+                 chk=np.zeros(q_len, np.int32))  # no latch: no 127
 
 
 def _launch(name, fn_name, stream, queries, q_len, s_len, k, args):

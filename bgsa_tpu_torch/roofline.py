@@ -159,7 +159,8 @@ class SassSpec:
     """Where a kernel's column loop is in its SASS.
 
     function: a regular expression that finds the instance's mangled name,
-      formatted with the shape (``W``, ``bits``, ``n_sub``, ``chains``);
+      formatted with the shape (``W``, ``bits``, ``n_sub``, ``chains``,
+      ``wide``);
     anchor: the opcode that loads a column's query code, ``anchors`` times a
       column (None: a kernel that loads none, whose largest innermost loop
       holds PEAK_UNROLL columns or chain steps: the peak kernel, and the
@@ -187,9 +188,15 @@ SASS_SPECS = {
     # traffic, is reported beside the bound and never in it
     "bitpal_packed_tiled": SassSpec(r"bitpal_tiled_kernel.*ELi{bits}EEEv", "LDS.U8"),
     "bitpal_tiled": SassSpec(r"bitpal_tiled_kernel.*ELi{bits}EEEv", "LDS.U8"),
+    # the query code from the row staged in shared memory, one a column: the
+    # generic column loops (the window's loads, at each batch's top, lie
+    # outside them) and the loop of unrolled whole batches (32 columns a
+    # trip, the window's loads once in it); the dual kernel's B-only columns
+    # are its cheapest
+    "banded_stream": SassSpec("banded_stream_kernelILb0ELb{wide}E", "LDS.U8", 1, every=False),
+    "banded_stream_dual": SassSpec("banded_stream_kernelILb1ELb{wide}E", "LDS.U8", 1,
+                                   every=False),
     # the query code and the checkpoint flag: two byte loads a column
-    "banded_stream": SassSpec("banded_stream_kernelILb0E", _CODE, 2, every=False),
-    "banded_stream_dual": SassSpec("banded_stream_kernelILb1E", _CODE, 2, every=False),
     "banded": SassSpec("banded_peq_kernel", _CODE, 2, every=False),
     # the query code from the row staged in shared memory
     "banded_stream_packed": SassSpec("banded_packed_kernelILi{n_sub}E", "LDS.U8", 1, every=False),

@@ -48,7 +48,7 @@ from ..ops import banded_pair as bpr
 SEED, QUERIES, SUBJECTS, LENGTH, K = 7, 8, 65536, 150, 8
 CHAIN, REPS = 24, 8
 # variant -> its CUDA kernel's name in the profiler (demangled or mangled)
-KERNELS = {"single": r"banded_stream_kernel(<false>|ILb0E)",
+KERNELS = {"single": r"banded_stream_kernel(<false,|ILb0E)",
            "pair": r"banded_stream_pair_kernel",
            "p_full": r"banded_probe_kernel(<0>|ILi0E)",
            "p_statc": r"banded_probe_kernel(<1>|ILi1E)",

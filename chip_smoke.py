@@ -24,14 +24,19 @@ Phases; any failure exits non-zero, before the result line:
    bit for bit (tolerance 0), over a geometry grid that hits every route and
    edge (packed n_sub 2, 3 and 6, the stream kernel's hi word and
    band_down == 63, the dual kernel with 2k >= 32, the Peq-carry corner, a
-   single-checkpoint query), each on all-garbage, all-near and read-filter
-   mix inputs at ragged subject counts; the device packers against
-   the host ``pack.pack_banded_host``;
+   single-checkpoint query, and the stream kernels' window edges: q_len 32,
+   64 and 96, band_down 31 and 32, the dual head ending inside a window, on
+   its first column and at q_len), each on all-garbage, all-near and
+   read-filter mix inputs at ragged subject counts; the device packers
+   against the host ``pack.pack_banded_host``;
 7. banded kernel and plain times by CUDA events at the JAX bench's banded
    line (Q=8, S=65,280, 150 bp, k=8, filter mix) and at one production
-   bucket (Q=20, S=190,080), each of the four kernels on the same data, and
-   the packed kernel's device time (a CUDA graph of 20 launches, replayed:
+   bucket (Q=20, S=190,080), each of the four kernels on the same data,
+   and each kernel's device time (a CUDA graph of 20 launches, replayed:
    the kernels line's ``device_ms``; its ``ms`` stays the CUDA-event time);
+   at both shapes also the stream and dual kernels at their routes' own
+   geometries (``ROUTE_GEOMETRIES``), held to their plain versions and
+   timed;
 8. the banded filter at production size through ``bgsa_tpu_torch.cli``:
    ``-k 8`` with 20 x 150 bp queries against 1,000,000 x 150 bp filter-mix
    subjects (the packed kernel), ``-k 16`` on a 100,000-subject slice (the
@@ -131,8 +136,8 @@ the kernel's measured time fails the run: a floor cannot be slower than
 the kernel. Each row also gives what its design adds, beside the bound and
 never in it: ``state_bytes``, the bytes it moves through a device scratch
 (BitPAl's planes between tiles), and ``design_sass``, the tiled kernel's
-own SASS per word-column (null elsewhere); and ``device_ms``, the packed
-banded kernel's device time from a CUDA graph (null elsewhere). The last
+own SASS per word-column (null elsewhere); and ``device_ms``, each banded
+kernel's device time from a CUDA graph (null elsewhere). The last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -533,8 +538,15 @@ BANDED_GRID = [  # (q_len, s_len, k): every route and edge
     (7, 7, 1),       # packed, n_sub = 16: slots past 48 KB of shared memory
     (150, 150, 16),  # stream, band in the hi word
     (150, 181, 16),  # stream, band_down == 63
-    (100, 95, 20),   # dual, 2k >= 32 and band_down >= 32
+    (32, 47, 8),     # stream, band_down 31 (the narrow instance), one window
+    (64, 72, 16),    # stream, the wide instance ending on a window's last column
+    (96, 96, 16),    # stream, band_down 32, three windows
+    (100, 95, 20),   # dual, 2k >= 32 and band_down >= 32: the head ends inside window 1
     (150, 148, 8),   # dual
+    (41, 30, 20),    # dual, the head (t <= 2k) crosses a window and ends at q_len
+    (32, 28, 20),    # dual, every column in the head
+    (64, 60, 12),    # dual, narrow, two windows
+    (96, 95, 16),    # dual, the head ends on window 1's first column
     (50, 20, 40),    # Peq-carry
     (55, 20, 40),    # Peq-carry
 ]
@@ -544,8 +556,13 @@ RAGGED_S = (1, 129, 1000)
 # one bucket of the production run (BUCKET_SIZE // 151, in 128s)
 BANDED_TIMED = (("bench line (bench.py:278-284)", 8, 65280),
                 ("one production bucket", 20, 190080))
-# the packed kernel's device time: launches a CUDA graph, replays timed
+# device time: launches a CUDA graph, replays timed
 GRAPH_LAUNCHES, GRAPH_REPLAYS = 20, 5
+# the stream and dual kernels' own geometries (q_len, s_len, k), timed at
+# both BANDED_TIMED shapes: stream at band_down 32 and 63, dual at 148 bp
+# (the 148 bp CLI run's) and 95 bp subjects (2k >= 32)
+ROUTE_GEOMETRIES = {"banded_stream": [(150, 150, 16), (150, 181, 16)],
+                    "banded_stream_dual": [(150, 148, 8), (100, 95, 20)]}
 # production runs: subjects of the -k 8 run, of the -k 16 and dual slices,
 # and of the Peq-carry run
 BANDED_SUBJECTS, BANDED_SLICE, PEQ_SUBJECTS = 1_000_000, 100_000, 10_000
@@ -661,6 +678,7 @@ def phase_banded_bench(rng, smi):
     print(f"== phase 7: banded kernel and plain times ({smi})")
     n = m = 150
     k = 8
+    band_down = banded_ops.geometry(m, n, k)[1]
     engine = BandedEngine(k, device="cuda")
     results = {}
     for label, Q, S in BANDED_TIMED:
@@ -688,21 +706,38 @@ def phase_banded_bench(rng, smi):
             plain_ms = statistics.median(
                 cuda_times_ms(lambda: plain(*args, qt, **kw), runs=3, warmup=1))
             over = float((got == 127).float().mean())
-            line = (f"    {name:21s} kernel median {kernel_ms:.4f} ms over 20 runs = "
-                    f"{cells / kernel_ms / 1e6:.1f} GCUPS")
-            device_ms = None
-            if name == "banded_stream_packed":  # sub-0.2 ms: also its device time
-                device_ms = statistics.median(graph_times_ms(lambda: kernel(*args, qt, **kw)))
-                line += (f"; device time {device_ms:.4f} ms (median of {GRAPH_REPLAYS} replays "
-                         f"of a CUDA graph of {GRAPH_LAUNCHES} launches)")
-            print(f"{line}; plain torch median {plain_ms:.1f} ms over 3 runs; device packing "
+            # sub-ms kernels: CUDA events hold the host's dispatch; a graph's do not
+            device_ms = statistics.median(graph_times_ms(lambda: kernel(*args, qt, **kw)))
+            print(f"    {name:21s} kernel median {kernel_ms:.4f} ms over 20 runs = "
+                  f"{cells / kernel_ms / 1e6:.1f} GCUPS; device time {device_ms:.4f} ms (median "
+                  f"of {GRAPH_REPLAYS} replays of a CUDA graph of {GRAPH_LAUNCHES} launches); "
+                  f"plain torch median {plain_ms:.1f} ms over 3 runs; device packing "
                   f"{pack_ms:.3f} ms; over budget {over:.3f}; max |diff| {err} ({smi})")
             if label == BANDED_TIMED[0][0]:
                 n_sub = packed_subbands(m, n, k) if name == "banded_stream_packed" else 1
                 results[name] = (err, kernel_ms, plain_ms, Work(
-                    main_library(), {"n_sub": n_sub}, sum(live) / n_sub,
-                    roofline.io_bytes(*args, qt, got), roofline.banded_ops(name, live)),
-                    device_ms)
+                    main_library(), {"n_sub": n_sub, "wide": int(band_down >= 32)},
+                    sum(live) / n_sub, roofline.io_bytes(*args, qt, got),
+                    roofline.banded_ops(name, live)), device_ms)
+        # the routes' own geometries, each on prefixes of one mix
+        longest = max(max(gm, gn) for geoms in ROUTE_GEOMETRIES.values() for gm, gn, _ in geoms)
+        route_q, route_s = filter_mix_dataset(rng, Q, S, longest)
+        for name, geometries in ROUTE_GEOMETRIES.items():
+            kernel = KERNELS[name][0]
+            for gm, gn, gk in geometries:
+                gqt = torch.from_numpy(np.ascontiguousarray(route_q[:, :gm])).cuda()
+                gargs = BandedEngine(gk, device="cuda").kernel_args(
+                    name, torch.from_numpy(route_s[:, :gn].astype(np.int32)).cuda(), gm)
+                err, got = banded_compare(name, gargs, gqt, gm, gn, gk)
+                check(err == 0, f"{name} kernel != plain at {(gm, gn, gk)}, the {label}")
+                kw = dict(q_len=gm, s_len=gn, k=gk)
+                kernel_ms = statistics.median(
+                    cuda_times_ms(lambda: kernel(*gargs, gqt, **kw), runs=20, warmup=3))
+                device_ms = statistics.median(graph_times_ms(lambda: kernel(*gargs, gqt, **kw)))
+                print(f"    {name:21s} at q={gm} s={gn} k={gk} (band_down "
+                      f"{banded_ops.geometry(gm, gn, gk)[1]}): kernel median {kernel_ms:.4f} ms "
+                      f"over 20 runs; device time {device_ms:.4f} ms; over budget "
+                      f"{float((got == 127).float().mean()):.3f}; max |diff| {err} ({smi})")
     return results
 
 

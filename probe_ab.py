@@ -8,13 +8,14 @@ parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists. The two trees run in turns, other / this / this /
 other, each turn a child process started in its tree, so each builds and
 imports its own ``bgsa_tpu_torch``. PART names what a turn runs
-(``bitpal``, ``cli``, ``banded``, ``generic``; default all four). A turn
-prints:
+(``bitpal``, ``cli``, ``banded``, ``generic``, ``stream``; default all
+five). A turn prints:
 
 - the registers, stack and shared memory of every ``banded_packed_kernel``
-  instance in the tree's main kernel library and (``bitpal``) of every
-  kernel in its (2,-3,-5) non-packed BitPAl library, from ``cuobjdump
-  -res-usage`` (it reads the library itself, so a cached one too);
+  instance in the tree's main kernel library, (``stream``) of every
+  ``banded_stream_kernel`` instance, and (``bitpal``) of every kernel in
+  its (2,-3,-5) non-packed BitPAl library, from ``cuobjdump -res-usage``
+  (it reads the library itself, so a cached one too);
 - ``bitpal``: the BitPAl kernels timed by CUDA events (median of 5 after a warm-up) on
   the same subjects in both trees: (2,-3,-5) non-packed with 32-bit words
   at the JAX bench's line (Q=40, m=500, S=32768, 500 bp) and at 1,100 bp
@@ -33,7 +34,13 @@ prints:
 - ``generic``: the same for the generic instance (n_sub >= 7, the field
   count a runtime argument) at the bench line's Q and S: n_sub 7 (150 bp
   queries, 151 bp subjects, k = 3), 8 (100 bp, k = 3) and 16 (7 bp, k =
-  1); and at the bucket's, n_sub 7 and 8.
+  1); and at the bucket's, n_sub 7 and 8;
+- ``stream``: the stream and dual banded kernels, timed as ``banded`` on
+  the filter mix at the bench line's and the bucket's Q and S: both at the
+  bench line's geometry (150 bp, k = 8), the stream kernel at its own
+  (150 bp queries, 150 and 181 bp subjects, k = 16: band_down 32 and 63)
+  and the dual kernel at its own (150 vs 148 bp, k = 8; 100 vs 95 bp,
+  k = 20).
 
 Exits with the first failing turn's code.
 """
@@ -50,6 +57,7 @@ from torch.utils.cpp_extension import CUDA_HOME
 sys.path.insert(0, ".")
 import chip_smoke
 from bgsa_tpu_torch.banded_pipeline import BandedEngine
+from bgsa_tpu_torch.ops import banded as bo
 from bgsa_tpu_torch.ops import banded_packed as bpk
 from bgsa_tpu_torch.ops import bitpal as tb
 from bgsa_tpu_torch.ops import bitpal_packed as tbp
@@ -58,6 +66,8 @@ parts = sys.argv[2].split(",")
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True, check=True).stdout.strip()
 libs = [(build.load().path, "banded_packed_kernel")]
+if "stream" in parts:
+    libs.append((build.load().path, "banded_stream_kernel"))
 if "bitpal" in parts:
     libs.append((build.load_scheme("bitpal", 2, -3, -5).path, "kernel"))
 for path, pattern in libs:
@@ -97,6 +107,35 @@ if "generic" in parts:  # n_sub 7, 8 and 16
     lines.append((label, Q, S, [(150, 151, 3), (100, 100, 3), (7, 7, 1)]))
     label, Q, S = chip_smoke.BANDED_TIMED[1]
     lines.append((label, Q, S, [(150, 151, 3), (100, 100, 3)]))
+def device_ms(run):
+    # median, min and max device ms of one run(): 20 launches captured in a
+    # CUDA graph, each of 5 replays timed by CUDA events
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            run()
+    dev = [t / 20 for t in chip_smoke.cuda_times_ms(graph.replay, runs=5, warmup=1)]
+    return statistics.median(dev), min(dev), max(dev)
+for label, Q, S in chip_smoke.BANDED_TIMED * ("stream" in parts):
+    # the banded bench line's geometry (both kernels take it), then each
+    # route's own: stream at band_down 32 and 63, dual at 148 and 95 bp
+    for name, (m, n, k) in (("banded_stream", (150, 150, 8)), ("banded_stream_dual", (150, 150, 8)),
+                            ("banded_stream", (150, 150, 16)), ("banded_stream", (150, 181, 16)),
+                            ("banded_stream_dual", (150, 148, 8)),
+                            ("banded_stream_dual", (100, 95, 20))):
+        engine = BandedEngine(k, device="cuda")
+        q, s = chip_smoke.banded_inputs(rng, Q, m, S, n, k, "mix")
+        codes, qt = torch.from_numpy(s).cuda(), torch.from_numpy(q).cuda()
+        args = engine.kernel_args(name, codes, m)
+        fn = getattr(bo, name)
+        kw = dict(q_len=m, s_len=n, k=k)
+        run = lambda: fn(*args, qt, **kw)
+        checksum = int(run().long().sum())
+        ms = statistics.median(chip_smoke.cuda_times_ms(run, runs=20, warmup=3))
+        dev, lo, hi = device_ms(run)
+        print(f"  {name}, {label}: Q={Q} S={S} m={m} n={n} k={k}: kernel median {ms:.4f} ms over "
+              f"20 runs; device time {dev:.4f} ms ({lo:.4f}-{hi:.4f}; a CUDA graph of 20 "
+              f"launches, 5 replays); output checksum {checksum} ({smi})")
 for label, Q, S, geometries in lines:
     for m, n, k in geometries:
         engine = BandedEngine(k, device="cuda")
@@ -107,19 +146,15 @@ for label, Q, S, geometries in lines:
         run = lambda: bpk.banded_stream_packed(*args, qt, **kw)
         checksum = int(run().long().sum())
         ms = statistics.median(chip_smoke.cuda_times_ms(run, runs=20, warmup=3))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(20):
-                run()
-        dev = [t / 20 for t in chip_smoke.cuda_times_ms(graph.replay, runs=5, warmup=1)]
+        dev, lo, hi = device_ms(run)
         print(f"  packed banded, {label}: Q={Q} S={S} m={m} n={n} k={k} "
               f"n_sub={bpk.packed_subbands(m, n, k)}: kernel median {ms:.4f} ms over 20 runs; "
-              f"device time {statistics.median(dev):.4f} ms ({min(dev):.4f}-{max(dev):.4f}; a "
-              f"CUDA graph of 20 launches, 5 replays); output checksum {checksum} ({smi})")
+              f"device time {dev:.4f} ms ({lo:.4f}-{hi:.4f}; a CUDA graph of 20 launches, 5 "
+              f"replays); output checksum {checksum} ({smi})")
 """
 
 
-PARTS = ("bitpal", "cli", "banded", "generic")
+PARTS = ("bitpal", "cli", "banded", "generic", "stream")
 
 
 def main(argv) -> int:

@@ -75,8 +75,13 @@ def test_build_failure_raises(cuda, tmp_path):
 # (q_len, s_len, k) of every banded route and edge
 BANDED_PACKED = [(150, 158, 8), (150, 150, 8), (100, 100, 4), (40, 44, 4), (3, 5, 4),
                  (100, 100, 3), (7, 7, 1)]  # n_sub 8 and 16: the generic instance
-BANDED_STREAM = [(150, 150, 16), (150, 181, 16), (150, 150, 1), (70, 70, 0)]
-BANDED_DUAL = [(100, 95, 20), (150, 148, 8), (41, 30, 20), (100, 99, 31)]
+# the stream kernels' window edges: q_len 32, 64 and 96 (the last window's
+# w + 2), band_down 31, 32, 40 and 63 (narrow and wide instances), and the
+# dual head (t <= 2k) ending inside a window or on its first column
+BANDED_STREAM = [(150, 150, 16), (150, 181, 16), (150, 150, 1), (70, 70, 0), (32, 47, 8),
+                 (64, 72, 16), (96, 96, 16)]
+BANDED_DUAL = [(100, 95, 20), (150, 148, 8), (41, 30, 20), (100, 99, 31), (32, 28, 20),
+               (64, 60, 12), (96, 95, 16)]
 BANDED_PEQ = [(50, 20, 40), (55, 20, 40), (150, 150, 8)]
 KINDS = ["garbage", "near", "mix"]
 
@@ -139,6 +144,26 @@ def test_banded_stream_kernel_matches_plain(cuda, m, n, k, kind, S):
 @pytest.mark.parametrize("m,n,k", BANDED_DUAL)
 def test_banded_dual_kernel_matches_plain(cuda, m, n, k, kind, S):
     kernel_vs_plain(cuda, "banded_stream_dual", m, n, k, kind, S)
+
+
+@pytest.mark.parametrize("name,m,n,k", [("banded_stream", 150, 150, 16),
+                                         ("banded_stream", 32, 47, 8),
+                                         ("banded_stream_dual", 100, 95, 20),
+                                         ("banded_stream_dual", 150, 148, 8)])
+def test_banded_stream_codes_outside_0_to_4_match_nothing(cuda, name, m, n, k):
+    # codes 5 and 9 in the queries score as code 4 against streams whose
+    # code-4 planes are zero
+    fn, ref = KERNELS[name]
+    q, s = banded_inputs(m + n, m, n, k, "near", S=300)
+    q[:, ::41], q[:, 20::53] = 5, 9
+    args = BandedEngine(k, PipelineConfig(), cuda).kernel_args(
+        name, torch.from_numpy(s).to(cuda), m)
+    zeroed = args[0].clone()
+    zeroed[..., 4, :, :] = 0
+    kw = dict(q_len=m, s_len=n, k=k)
+    got = fn(*args, torch.from_numpy(q).to(cuda), **kw)
+    want = ref(zeroed, torch.from_numpy(np.where(q >= 5, 4, q)).to(cuda), **kw)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("S", [1, 129, 1000])
@@ -317,7 +342,9 @@ def test_banded_engine_on_two_shards_of_the_card(cuda, m, n, k):
 
 @pytest.mark.parametrize("name,shape,library", [
     ("myers_semiglobal", {"W": 16}, None), ("myers_global", {"W": 17}, None),
-    ("banded_stream", {}, None), ("banded_stream_dual", {}, None), ("banded", {}, None),
+    ("banded_stream", {"wide": 0}, None), ("banded_stream", {"wide": 1}, None),
+    ("banded_stream_dual", {"wide": 0}, None), ("banded_stream_dual", {"wide": 1}, None),
+    ("banded", {}, None),
     ("banded_stream_packed", {"n_sub": 3}, None), ("int_peak", {"chains": 16}, None),
     ("bitpal_packed", {"bits": 31, "W": 17}, "bitpal_packed"),
     ("bitpal", {"bits": 32, "W": 5}, "bitpal"), ("bitpal_tiled", {"bits": 32}, "bitpal"),

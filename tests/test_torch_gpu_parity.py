@@ -117,6 +117,41 @@ def test_experiment_shapes_are_the_jax_scripts():
     assert (exp_banded_pair.CHAIN, exp_banded_pair.REPS) == (24, 8)
 
 
+def test_experiment_kernel_patterns_find_their_kernels_only():
+    # the profiler reports demangled or mangled names; each variant's pattern
+    # must find its own kernel's instances (the stream kernel's are
+    # banded_stream_kernel<Dual, Wide>: the single variant runs <false, *>)
+    # and no other kernel of the chain
+    demangled = {
+        "single": ["banded_stream_kernel<false, false>", "banded_stream_kernel<false, true>"],
+        "pair": ["banded_stream_pair_kernel"],
+        "p_full": ["banded_probe_kernel<0>"], "p_statc": ["banded_probe_kernel<1>"],
+        "p_noload": ["banded_probe_kernel<2>"],
+        "packed": ["banded_packed_kernel<3>"], "p_pair": ["banded_packed_pair_kernel<3>"],
+    }
+    mangled = {
+        "single": ["20banded_stream_kernelILb0ELb0EEEvPKjPKhPi",
+                   "20banded_stream_kernelILb0ELb1EEEvPKjPKhPi"],
+        "pair": ["25banded_stream_pair_kernelEPKjPKhS4_Pi"],
+        "p_full": ["19banded_probe_kernelILi0EEvPKj"],
+        "p_statc": ["19banded_probe_kernelILi1EEvPKj"],
+        "p_noload": ["19banded_probe_kernelILi2EEvPKj"],
+        "packed": ["20banded_packed_kernelILi3EEvPKj"],
+        "p_pair": ["25banded_packed_pair_kernelILi3EEvPKj"],
+    }
+    others = ["banded_stream_kernel<true, false>", "20banded_stream_kernelILb1ELb1EEEv"]
+    patterns = {**exp_banded_pair.KERNELS, "packed": exp_banded_packed_pair.KERNELS["packed"],
+                "p_pair": exp_banded_packed_pair.KERNELS["pair"]}
+    names = {v: [f"(anonymous namespace)::{n}(unsigned int const*, int)" for n in demangled[v]]
+             + [f"_ZN41_GLOBAL__N__5899619a_9_banded_cu_7b921b5d{n}" for n in mangled[v]]
+             for v in demangled}
+    for variant, pattern in patterns.items():
+        for other, listed in names.items():
+            for name in listed:
+                assert bool(re.search(pattern, name)) == (other == variant), (variant, name)
+        assert not any(re.search(pattern, name) for name in others), variant
+
+
 def test_chain_of_runs_serially_with_a_zero_dependency():
     calls = []
 

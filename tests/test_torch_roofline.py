@@ -278,9 +278,13 @@ def banded_kernel():
 
 
 def test_sass_banded_kernel_takes_the_shortest_path_with_code_checks_falling_through():
+    # the per-column form's two byte loads a column (the query code and the
+    # checkpoint flag), as the Peq-carry kernel and the stream kernels before
+    # their window fold read them
     name = "_ZN4anon20banded_stream_kernelILb0EEEv"
     ins = roofline.sass_functions(listing(name, banded_kernel()))[name]
-    per = roofline.column_instructions(ins, roofline.SASS_SPECS["banded_stream"])
+    spec = roofline.SassSpec("banded_stream_kernelILb0E", "LDG.E.U8.CONSTANT", 2, every=False)
+    per = roofline.column_instructions(ins, spec)
     # head: 12 instructions; the code check falls through, @P3 skips two LOP3s
     # -> 10 issued, 2 ALU (ISETP, SHF), 1 FMA; batch: 16 a trip over 2
     # columns -> 8 issued, ALU (2 ISETP, 2 LOP3, 2 IADD3) / 2 = 3, FMA 1 / 2;
@@ -289,6 +293,60 @@ def test_sass_banded_kernel_takes_the_shortest_path_with_code_checks_falling_thr
     every = roofline.SassSpec("banded_stream_kernelILb0E", "LDG.E.U8.CONSTANT", 2, every=True)
     # every branch falling through: the head loop's 12, the batch loop's 8
     assert roofline.column_instructions(ins, every) == {"issue": 8, "alu": 3, "fma": 0.5}
+
+
+def window_fold_kernel(whole=True):
+    """The stream kernels' batch loops as the window fold compiles them:
+    each batch loads the window into the slot (10 loads, 5 stores), then a
+    generic batch runs a column loop (the code from the staged row, the
+    slot's words, the funnel shift, the band update; 7 instructions a trip
+    here) and a whole batch (``whole``) 32 unrolled columns (4 instructions
+    each: the funnel amount is a constant); each batch ends with the latch
+    and the warp's vote."""
+    window = [("", f"LDG.E.CONSTANT R{20 + c}, desc[UR6][R8.64+{4 * c:#x}]") for c in range(10)]
+    window += [("", f"STS.64 [R3+{0x400 * c:#x}], R{20 + 2 * c}") for c in range(5)]
+    vote = [("", "ISETP.GT.AND P4, PT, R2, UR8, PT"), ("", "VOTE.ALL P5, P4")]
+    body = [("", "S2R R0, SR_TID.X")]
+    body += [(*window[0], "generic")] + window[1:]
+    body += [("", "LDS.U8 R12, [R4+UR5]", "col"), ("", "LEA R13, R12, R3, 0xa"),
+             ("", "LDS.64 R14, [R13]"), ("", "SHF.R.W.U32 R16, R14, R7, R15"),
+             ("", "LOP3.LUT R17, R16, R10, RZ, 0xfc, !PT"), ("", "VIADD R4, R4, 0x1"),
+             ("@!P3", "BRA @col")]
+    body += vote + [("@!P5", "BRA @generic")]
+    if whole:
+        body += [(*window[0], "whole")] + window[1:]
+        for i in range(32):
+            body += [("", f"LDS.U8 R12, [R4+{i:#x}]"), ("", "LEA R13, R12, R3, 0xa"),
+                     ("", "LDS.64 R14, [R13]"), ("", f"SHF.R.W.U32 R16, R14, {i:#x}, R15")]
+        body += vote + [("@!P5", "BRA @whole")]
+    return body + [("", "EXIT")]
+
+
+def test_sass_stream_kernel_counts_its_column_loops_not_the_window_load():
+    spec = roofline.SASS_SPECS["banded_stream"]
+    assert (spec.anchor, spec.anchors) == ("LDS.U8", 1)
+    name = "_ZN4anon20banded_stream_kernelILb0ELb0EEEvPKjPKhPiiiiiiiiii"
+    generic = roofline.sass_functions(listing(name, window_fold_kernel(whole=False)))
+    per = roofline.column_instructions(
+        roofline.find_function(generic, spec.function.format(wide=0)), spec)
+    # the generic column loop: LDS.U8, LEA, LDS.64, SHF, LOP3, VIADD, BRA
+    # (ALU: LEA, SHF, LOP3); the window's 10 loads and 5 stores lie outside it
+    assert per == {"issue": 7, "alu": 3, "fma": 0}
+    functions = roofline.sass_functions(listing(name, window_fold_kernel()))
+    per = roofline.column_instructions(
+        roofline.find_function(functions, spec.function.format(wide=0)), spec)
+    # the whole batches: 32 x 4 + 15 (the window, once a batch) + 3 (the
+    # vote, the back edge) issued over 32 columns (ALU: 32 x (LEA, SHF) +
+    # ISETP), cheaper than the generic loop on every pipe
+    assert per == {"issue": (128 + 15 + 3) / 32, "alu": (64 + 1) / 32, "fma": 0}
+    with pytest.raises(ValueError, match="0 SASS functions"):
+        roofline.find_function(functions, roofline.SASS_SPECS["banded_stream_dual"].function
+                               .format(wide=0))
+    # the instances' template arguments are csrc/banded.cu's <Dual, Wide>
+    with open(os.path.join(REPO, "bgsa_tpu_torch", "csrc", "banded.cu")) as f:
+        text = f.read()
+    assert "template <bool Dual, bool Wide>\n__global__" in text
+    assert "const bool wide = band_down >= 32;" in text
 
 
 def test_sass_nested_loop_counts_one_trip():
