@@ -149,11 +149,11 @@ def compile_library(sources, out_dir: str, *, stem: str = "bgsa_kernels", tag: s
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 # pointers..., ints..., stream
 _SIGNATURES = {
-    "bgsa_myers_semiglobal": [_ptr] * 4 + [_i32] * 7 + [_ptr],
+    "bgsa_myers_semiglobal": [_ptr] * 4 + [_i32] * 8 + [_ptr],
     "bgsa_banded_stream": [_ptr] * 3 + [_i32] * 10 + [_ptr],
     "bgsa_banded_peq": [_ptr] * 6 + [_i32] * 9 + [_ptr],
     "bgsa_banded_packed": [_ptr] * 3 + [_i32] * 9 + [_ptr],
-    "bgsa_myers_global": [_ptr] * 4 + [_i32] * 6 + [_ptr],
+    "bgsa_myers_global": [_ptr] * 4 + [_i32] * 7 + [_ptr],
     "bgsa_myers_global_reg_words": [],
     "bgsa_int_peak": [_ptr] * 2 + [_i32] * 3 + [_ptr],
     "bgsa_int_peak_supports": [_i32],

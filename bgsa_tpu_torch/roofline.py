@@ -165,13 +165,16 @@ class SassSpec:
       column (None: a kernel that loads none, whose largest innermost loop
       holds PEAK_UNROLL columns or chain steps: the peak kernel, and the
       banded probes that read no query code);
-    every: every branch in the loop falls through on the timed inputs.
+    every: every branch in the loop falls through on the timed inputs;
+    words: word-columns one column of the loop holds (the Myers strip
+      kernels: a strip of 32 words), so that counts are per word-column.
     """
 
     function: str
     anchor: str | None
     anchors: int = 1
     every: bool = True
+    words: int = 1
 
 
 _CODE = "LDG.E.U8.CONSTANT"
@@ -188,6 +191,17 @@ SASS_SPECS = {
     # traffic, is reported beside the bound and never in it
     "bitpal_packed_tiled": SassSpec(r"bitpal_tiled_kernel.*ELi{bits}EEEv", "LDS.U8"),
     "bitpal_tiled": SassSpec(r"bitpal_tiled_kernel.*ELi{bits}EEEv", "LDS.U8"),
+    # the Myers strip kernels past the register bound: one column of a strip
+    # of 32 words a trip (the code from the staged row, or in the wavefront
+    # shuffled from the lane that loaded it; the strip's words; the carry
+    # bits in and out). Their bound is the network's cost, the <32>
+    # register instance's SASS per column over its 32 words, for every
+    # word-column; this count, per word-column, is reported beside the bound
+    # and never in it
+    "myers_semiglobal_strips": SassSpec("myers_stripsEP", "LDS.U8", words=32),
+    "myers_global_strips": SassSpec("global31_stripsEP", "LDS.U8", words=32),
+    "myers_semiglobal_wave": SassSpec("myers_strips_waveEP", "SHFL.IDX", words=32),
+    "myers_global_wave": SassSpec("global31_strips_waveEP", "SHFL.IDX", words=32),
     # the query code from the row staged in shared memory, one a column: the
     # generic column loops (the window's loads, at each batch's top, lie
     # outside them) and the loop of unrolled whole batches (32 columns a
@@ -305,6 +319,7 @@ def _trip(body, every: bool, anchor: str | None) -> dict:
 def column_instructions(ins, spec: SassSpec) -> dict:
     """Instructions per pipe of one column (one thread, one query character;
     for the peak kernel one step of every chain; for BitPAl's tiled kernel
+    one word of one column; over ``spec.words``, for the Myers strip kernels
     one word of one column) of the kernel instance ``ins``: the cheapest of
     its column loops, one trip over the columns it holds. A loop nested in a
     column loop counts one trip, where the path goes through it (the packed
@@ -330,7 +345,7 @@ def column_instructions(ins, spec: SassSpec) -> dict:
     best = None
     for lo, hi in column_loops:
         trip = _trip(ins[lo:hi + 1], spec.every, spec.anchor)
-        cols = anchors(lo, hi) / spec.anchors
+        cols = anchors(lo, hi) / spec.anchors * spec.words
         per_column = {p: v / cols for p, v in trip.items()}
         best = per_column if best is None else {p: min(best[p], per_column[p]) for p in best}
     return best

@@ -9,17 +9,31 @@ Phases; any failure exits non-zero, before the result line:
 1. environment: a CUDA device, its name and power limit (nvidia-smi), and
    the kernel library built from the checkout's sources;
 2. the Myers kernel against its plain torch version on the card, bit for
-   bit (tolerance 0: integer scores), over subject lengths 1..1500 bp,
-   ragged subject counts, both modes, factor -1 and +1, and N codes;
+   bit (tolerance 0: integer scores), over subject lengths 1..1500 bp and
+   the strip kernel's boundaries (1,025, 2,049, 5,000 and 10,000 bp at m
+   <= 32: the plain version loops over m x W in Python; and at m = 97 and
+   128, the wavefront; subjects mostly A, each with its own share of C, G
+   and T, so that the carries between strips differ from pair to pair and
+   column to column), ragged subject counts, both modes, factor -1 and +1,
+   and N codes;
 3. kernel and plain times by CUDA events, equal bit for bit, at the bench
    geometry (Q=40, m=500, S=32768, n=500, global) and at one bucket of the
    production run (Q=20, m=150, S=190,080, n=150, both modes), with the
-   subjects taken through the device unpack and Eq packing;
+   subjects taken through the device unpack and Eq packing; and the strip
+   kernel in semi-global mode at the 5 kbp bucket (Q=20, m=1,000, S=5,632,
+   n=5,000), with 256 sampled scores checked against the oracle;
 4. the golden files through the port's ``run_alignment``, byte for byte;
 5. production size: 20 x 150 bp queries against 1,000,000 x 150 bp subjects
    through ``bgsa_tpu_torch.cli.align_main`` (the main path; its kernel
    launches are counted), with 4,096 sampled scores checked against the
-   numpy oracle, and the same in semi-global mode on a 100,000-subject slice;
+   numpy oracle, and the same in semi-global mode on a 100,000-subject
+   slice; then long subjects from ``scripts/make_testdata.py``'s generator
+   (seed 1): 20 x 5,000 bp queries against 20,000 x 5,000 bp subjects (four
+   buckets, every launch the strip kernel's on one warp a group) and 10 x
+   10,000 bp against 5,632 x 10,000 bp (two buckets of few pairs, every
+   launch the wavefront's), launches counted, every score of each result
+   file held to the kernel's on the whole input (many pairs: the strips on
+   one warp a group), and 256 and 64 sampled scores to the oracle;
 6. the four banded kernels against their plain torch versions on the card,
    bit for bit (tolerance 0), over a geometry grid that hits every route and
    edge (packed n_sub 2, 3 and 6, the stream kernel's hi word and
@@ -53,7 +67,8 @@ Phases; any failure exits non-zero, before the result line:
    wide (5,-4,-11) and (5,-4,-10), subject lengths 1..1100 bp (1100 bp
    takes the tiled kernel of every scheme, over two tiles of query columns;
    at 500 bp a tiled kernel is also held to the word-major plain model),
-   both word layouts (31 and 32 bits), both modes and ragged subject
+   both word layouts (31 and 32 bits) in turn global and semi-global (each
+   scheme and layout in both modes over the grid) and ragged subject
    counts;
 10. BitPAl kernel and plain times by CUDA events at the JAX bench's BitPAl
     line (Q=40, m=500, S=32768, n=500, (2,-3,-5), global; packed with
@@ -76,13 +91,25 @@ Phases; any failure exits non-zero, before the result line:
 13. the 31-bit reference-layout Myers kernel against its plain version
     and against the full-word kernel's global scores on the same subjects
     (tolerance 0), n = 1..1500 bp across every word boundary near 31, 62
-    and 93 and the register/scratch switch (992/993 bp), ragged subject
-    counts, factor -1 and +1, N codes;
+    and 93 and the register/strip switch (992/993 bp), and phase 2's strip
+    boundaries and subjects, ragged subject counts, factor -1 and +1 (one
+    plain run a geometry, times the factor), N codes;
 14. both Myers kernels and their plain versions timed by CUDA events on the
-    same subjects at the bench geometry and at one production bucket;
+    same subjects at the bench geometry and at one production bucket; then
+    both strip kernels (no plain run but one at the 5 kbp bucket) at
+    ``MYERS_LONG``: Q=20, m=1,000 against one bucket of 5, 10, 20 and 40
+    kbp subjects and the card-filling Q=40, m=500, S=32,768, 5 kbp, the two
+    kernels' scores equal and 256 samples checked against the oracle at
+    each (phase 2's skewed subjects, so that the scores spread; the 20 and
+    40 kbp buckets take the wavefront), and the strip kernels at
+    ``STRIP_ROW`` and their wavefronts at ``WAVE_ROW`` (a bucket of each
+    long CLI run, fewer query columns) against their plain versions (the
+    kernels line's rows);
 15. the device mesh and ``--shards`` on one card: ``myers_global_sharded``
-    over a (2, 2) mesh of ``cuda:0`` at the production bucket, merge both
-    ways (its launches counted), every engine and route on two shards of
+    over a (2, 2) mesh of ``cuda:0`` at the production bucket, the
+    card-filling shape (the strip kernel on one warp a group) and the 40
+    kbp bucket (the wavefront), merge both ways (its launches counted),
+    every engine and route on two shards of
     ``cuda:0`` (2-bit and 2bit+N payloads) against one device,
     ``bgsa-torch-align --shards 0`` byte-equal to the unsharded run, and
     ``--shards`` past the visible devices refused with ``bgsa-align``'s text;
@@ -115,6 +142,10 @@ Phases; any failure exits non-zero, before the result line:
 20. ``bgsa_tpu_torch.scripts.gpu_parity`` returns 0: every kernel family
     against the oracles at unaligned shapes, packed n_sub 5 and 6 included.
 
+The oracle samples of phases 3, 5 and 14 run in a pool of worker
+processes (the numpy oracle's O(m n) sweeps over the host's cores) that
+each of those phases starts and stops for its own.
+
 Kernel inputs are packed by ``BandedEngine.kernel_args``, as the engine
 packs them for its route. Every kernel library (the main one and one per
 BitPAl kernel and scheme) is built in phase 1, all nvcc processes started
@@ -129,23 +160,32 @@ The second-to-last line is a JSON object describing each kernel of the
 paths, with its bound: the kernel's own instructions per column (its SASS,
 ``roofline.column_instructions``) for the columns the timed inputs need, at
 the slowest pipe's published rate at ``clocks.max.sm``, or the bytes over
-3.35 TB/s, whichever is larger (for BitPAl's tiled kernel, the SASS per
-column of the scheme's largest register instance over its words, for every
-word-column: the network's cost, not the design's). A bound above 105 % of
-the kernel's measured time fails the run: a floor cannot be slower than
-the kernel. Each row also gives what its design adds, beside the bound and
-never in it: ``state_bytes``, the bytes it moves through a device scratch
-(BitPAl's planes between tiles), and ``design_sass``, the tiled kernel's
-own SASS per word-column (null elsewhere); and ``device_ms``, each banded
-kernel's device time from a CUDA graph (null elsewhere). The last
-line is ``{"ok": true, "device": {...}}``.
+3.35 TB/s, whichever is larger (for BitPAl's tiled kernel and the Myers
+strip kernels, the SASS per column of the largest register instance over
+its words, for every word-column: the network's cost, not the design's).
+The strip kernels have rows of their own, ``myers_semiglobal strips`` (its
+launches: the 5 kbp CLI run's) and ``myers_global strips`` (the mesh's at
+the card-filling shape), timed at ``STRIP_ROW``, and so have their wavefronts,
+``myers_semiglobal strips wave`` (the 10 kbp CLI run's) and ``myers_global
+strips wave`` (the mesh's at the 40 kbp bucket), timed at ``WAVE_ROW``;
+their other shapes print their bounds after the line's rows. A bound above 105 % of the
+kernel's measured time fails the run: a floor cannot be slower than the
+kernel. Each row also gives what its design adds, beside the bound and
+never in it: ``state_bytes``, the bytes it moves through device memory
+(BitPAl's planes between tiles, the strip kernels' carry words between
+strips, each written and read once), and ``design_sass``, the tiled or
+strip kernel's own SASS per word-column (null elsewhere); and
+``device_ms``, each banded kernel's device time from a CUDA graph (null
+elsewhere). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import importlib.util
 import json
+import multiprocessing
 import os
 import re
 import statistics
@@ -202,7 +242,8 @@ class Work:
     besides (reported beside the bound, never in it: a design must not move
     its own floor): the state bytes it moves through a device scratch, and
     the SASS entry of its own loop where the bound takes another instance's
-    (BitPAl's tiled kernel is bound by its register network per word)."""
+    (BitPAl's tiled kernel and the Myers strip kernels are bound by their
+    register network per word)."""
 
     library: str | None
     shape: dict
@@ -211,6 +252,47 @@ class Work:
     jax_ops: float | None
     state_bytes: int = 0  # device scratch the design moves besides (not in the bound)
     design: str | None = None  # roofline.SASS_SPECS entry of the design's loop (not in the bound)
+    bound_spec: str | None = None  # roofline.SASS_SPECS entry of the bound, if not the row's name
+
+
+# the Myers kernels past their register bound (the strip kernels), timed in
+# phases 3 and 14: (label, Q, m, n, S; None: the subject count
+# io.seqfile.DatabaseReader cuts from one BUCKET_SIZE bucket): Q=20, m=1,000
+# against a bucket of 5, 10, 20 and 40 kbp subjects, and the card-filling
+# shape (its Eq, 103 MB, beyond L2)
+MYERS_LONG = (("5 kbp bucket", 20, 1000, 5000, None), ("10 kbp bucket", 20, 1000, 10000, None),
+              ("20 kbp bucket", 20, 1000, 20000, None), ("40 kbp bucket", 20, 1000, 40000, None),
+              ("card-filling", 40, 500, 5000, 32768))
+# (n, m, Q, S) at the strip boundaries (the plain versions loop over m x W
+# in Python): 1,025 and 2,049 bp end in a strip of one to three words,
+# 5,000 and 10,000 bp run five or six and ten or eleven strips (full words
+# or 31-bit). m <= 32 runs a group's strips on one warp; on so few pairs,
+# four batches of columns (m = 97, 128) run them as the wavefront over four
+# warps, with two strips (two warps idle) and five or six. The subjects are
+# skewed_subjects', so that the carries between strips differ
+STRIP_GRID = [(1025, 32, 2, 129), (2049, 32, 2, 77), (5000, 20, 2, 65), (10000, 12, 2, 33),
+              (1025, 97, 2, 77), (5000, 128, 2, 65)]
+ORACLE_LONG = 256  # oracle samples at each long shape and of the 5 kbp CLI run
+# the long-subject CLI runs of phase 5 (queries, query bp, subjects, subject
+# bp, oracle samples): four 5 kbp buckets (the strip kernel on one warp a
+# group) and, few pairs, two 10 kbp buckets of ten queries (the wavefront),
+# both with queries as long as the subjects, so that the scores spread (a
+# 10 kbp sweep of the numpy oracle takes seconds: fewer samples)
+LONG_CLI = ((20, 5000, 20_000, 5000, ORACLE_LONG), (10, 10_000, 5632, 10_000, 64))
+# the kernels line's shapes (Q, m, n, S), where the plain versions run in
+# seconds (phase 14 times the kernels at every MYERS_LONG shape too): the
+# pairs of a bucket of each long-subject CLI run, with two and four batches
+# of columns: the strip kernels (one warp a group) and their wavefronts
+STRIP_ROW = (20, 64, 5000, None)
+WAVE_ROW = (10, 97, 10_000, None)
+
+
+START = time.perf_counter()
+
+
+def phase(header: str) -> None:
+    """Print a phase's header after the seconds since the script started."""
+    print(f"[{time.perf_counter() - START:.0f} s] {header}")
 
 
 def main_library() -> str:
@@ -222,6 +304,74 @@ def main_library() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def bucket_subjects(n: int) -> int:
+    """Subjects of n bp in one BUCKET_SIZE bucket, as the reader cuts it."""
+    from bgsa_tpu_torch.pipeline import BUCKET_SIZE
+
+    return BUCKET_SIZE // (n + 1) // 128 * 128
+
+
+def skewed_subjects(rng, S, n, n_rate=0.0):
+    """(S, n) int8 codes, A but for a share of C, G and T of each subject's
+    own, log-uniform from 0.0003 to 0.75 (ACGT uniform). A uniform query of
+    m << n bp is a subsequence of a uniform subject's first strip, so that
+    every later strip sees the same carries (hp 0, hn 1) at every column;
+    against these subjects the carries between strips differ from pair to
+    pair and column to column, and the scores spread above n - m.
+    ``n_rate``: a share of N (code 4)."""
+    miss = np.exp(rng.uniform(np.log(3e-4), np.log(0.75), size=(S, 1))).astype(np.float32)
+    codes = np.where(rng.random((S, n), dtype=np.float32) < miss,
+                     rng.integers(1, 4, size=(S, n), dtype=np.int8), np.int8(0))
+    if n_rate:
+        codes[rng.random((S, n), dtype=np.float32) < n_rate] = 4
+    return codes
+
+
+class OracleSamples:
+    """Sampled scores held against ``oracle`` in worker processes, its
+    O(m n) sweeps spread over the host's cores. A context for one phase:
+    entered, it starts the pool; ``submit`` draws ``samples`` (query,
+    subject) pairs of a (Q, S) score array and queues oracle calls of a few
+    subjects each; leaving, it checks every call and stops the pool, so no
+    sweep runs beside another phase's work."""
+
+    def __enter__(self):
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            os.cpu_count() or 1, mp_context=multiprocessing.get_context("spawn"))
+        self.jobs = []
+        return self
+
+    def submit(self, label, rng, queries, subjects, scores, mode, factor=-1,
+               samples=ORACLE_LONG):
+        from bgsa_tpu_torch import oracle
+
+        q_idx = rng.integers(0, len(queries), samples)
+        s_idx = rng.integers(0, len(subjects), samples)
+        chunk = max(1, 65536 // subjects.shape[1])  # a sweep's rows stay in cache
+        for qi in np.unique(q_idx):
+            sel = s_idx[q_idx == qi]
+            for i in range(0, len(sel), chunk):
+                part = sel[i:i + chunk]
+                future = self.pool.submit(oracle.edit_distances, np.asarray(queries[qi]),
+                                          np.asarray(subjects[part]), mode)
+                self.jobs.append((label, future, factor, scores[qi, part]))
+
+    def __exit__(self, *exc):
+        try:
+            if exc[0] is None:
+                done = {}
+                for label, future, factor, got in self.jobs:
+                    bad = int(np.count_nonzero(got != factor * future.result()))
+                    check(bad == 0, f"{label}: {bad} sampled scores differ from the oracle")
+                    done[label] = done.get(label, 0) + got.size
+                for label, count in done.items():
+                    print(f"  {label}: {count} sampled scores equal the oracle (worker "
+                          "processes)")
+        finally:
+            self.pool.shutdown(cancel_futures=True)
+        return False
 
 
 def random_codes(rng, shape, n_rate=0.0):
@@ -236,7 +386,7 @@ def phase_environment():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    print("== phase 1: environment")
+    phase(f"== phase 1: environment")
     print(smi)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device 0: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
@@ -296,20 +446,36 @@ def compare(eq, queries, *, read_len, factor, is_global):
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0, got
 
 
-def phase_kernel_vs_plain(rng):
-    from bgsa_tpu_torch import pack
+def myers_path(W, reg_words, Q, S, m):
+    """Which instance a Myers launch takes: registers, strips (one warp a
+    group of 32 subjects) or the strips' wavefront."""
+    from bgsa_tpu_torch import roofline
     from bgsa_tpu_torch.ops import myers_semiglobal as ms
 
-    print("== phase 2: kernel vs plain torch version on the card (tolerance 0)")
+    if W <= reg_words:
+        return "registers"
+    return "wavefront" if ms.strip_wave(Q, S, m, roofline.sm_count(CARD)) else "strips"
+
+
+def phase_kernel_vs_plain(rng):
+    from bgsa_tpu_torch import pack
+    from bgsa_tpu_torch.ops import build
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+
+    phase(f"== phase 2: kernel vs plain torch version on the card (tolerance 0)")
     launches0 = ms.LAUNCHES
     modes = [(True, -1), (False, 1), (True, 1), (False, -1)]
     # (n, m, Q, S): subject length, query length, queries, subjects
     geometries = [(n, 150, 3, 1000) for n in (1, 31, 32, 33, 150, 500, 960, 1500)]
-    geometries += [(150, 1100, 2, 777), (33, 1, 3, 129), (500, 60, 1, 1)]
+    geometries += [(150, 1100, 2, 777), (33, 1, 3, 129), (500, 60, 1, 1)] + STRIP_GRID
+    reg_words = build.load().reg_words
     max_err = 0
     for gi, (n, m, Q, S) in enumerate(geometries):
         queries = random_codes(rng, (Q, m), n_rate=0.03)
-        subjects = random_codes(rng, (S, n), n_rate=0.03)
+        if (n, m, Q, S) in STRIP_GRID:
+            subjects = skewed_subjects(rng, S, n, n_rate=0.03).astype(np.int32)
+        else:
+            subjects = random_codes(rng, (S, n), n_rate=0.03)
         if n == m:  # all-ones carries: a subject equal to a query, one of one base
             subjects[0] = queries[0]
             subjects[1] = 0
@@ -318,7 +484,9 @@ def phase_kernel_vs_plain(rng):
         qt = torch.from_numpy(queries).cuda()
         for is_global, factor in (modes[gi % 4], modes[(gi + 1) % 4]):
             err, _ = compare(eq, qt, read_len=n, factor=factor, is_global=is_global)
-            print(f"  n={n:5d} m={m:5d} Q={Q} S={S:5d} W={eq.shape[1]:3d} "
+            W = eq.shape[1]
+            print(f"  n={n:5d} m={m:5d} Q={Q} S={S:5d} W={W:3d} "
+                  f"({myers_path(W, reg_words, Q, S, m)}) "
                   f"{'global' if is_global else 'semi  '} factor={factor:+d}: max |diff| {err}")
             check(err == 0, f"kernel != plain at n={n} m={m} S={S} global={is_global}")
             max_err = max(max_err, err)
@@ -378,11 +546,31 @@ def device_eq(rng, S, n, word_bits=32):
     return eq
 
 
-def phase_bench(rng, smi):
+def strip_work(name, eq, qt, n, wave=False):
+    """Work of a Myers strip-kernel run (``wave``: the wavefront's): bound by
+    the register network's cost (the <reg_words> register instance's SASS
+    per column over its words, for every word-column), its own loop's SASS
+    per word-column and the carry words its strips write and read back
+    reported beside it."""
     from bgsa_tpu_torch import roofline
-    from bgsa_tpu_torch.pipeline import BUCKET_SIZE
+    from bgsa_tpu_torch.ops import build
+    from bgsa_tpu_torch.ops.myers_semiglobal import carry_words
 
-    print(f"== phase 3: kernel and plain times ({smi})")
+    (Q, m), (_, W, S) = qt.shape, eq.shape
+    reg_words = build.load().reg_words
+    planes = 2 if name == "myers_semiglobal" else 3
+    return Work(main_library(), {"W": reg_words}, Q * m * S * W / reg_words,
+                roofline.io_bytes(eq, qt) + 4 * Q * S, roofline.word_kernel_ops(name, Q, m, S, n),
+                state_bytes=2 * (-(-W // reg_words) - 1) * planes * carry_words(m) * Q * S * 4,
+                design=f"{name}_{'wave' if wave else 'strips'}", bound_spec=name)
+
+
+def phase_bench(rng, smi, long_lines):
+    from bgsa_tpu_torch import pack, roofline
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+    from bgsa_tpu_torch.schemes import Mode
+
+    phase(f"== phase 3: kernel and plain times ({smi})")
     Q, m, S, n = 40, 500, 32768, 500  # the JAX bench's Myers line
     eq = device_eq(rng, S, n)
     qt = torch.from_numpy(random_codes(rng, (Q, m))).cuda()
@@ -394,12 +582,34 @@ def phase_bench(rng, smi):
 
     # one full bucket of the production run: 150 bp lines, default bucket size
     n = m = 150
-    S = BUCKET_SIZE // (n + 1) // 128 * 128
+    S = bucket_subjects(n)
     eq = device_eq(rng, S, n)
     qt = torch.from_numpy(random_codes(rng, (20, m))).cuda()
     print("  the production run's bucket shape:")
     errs = [time_kernel_and_plain(eq, qt, read_len=n, is_global=g, smi=smi)[0]
             for g in (True, False)]
+
+    # the strip kernel in semi-global mode at the 5 kbp bucket (phase 14
+    # times both kernels' global mode at every long shape)
+    label, Q, m, n, S = MYERS_LONG[0]
+    S = S or bucket_subjects(n)
+    subjects, queries = skewed_subjects(rng, S, n), random_codes(rng, (Q, m))
+    eq = pack.pack_eq(torch.from_numpy(subjects).cuda(), 32)
+    qt = torch.from_numpy(queries).cuda()
+    kw = dict(read_len=n, is_global=False)
+    before = ms.STRIP_LAUNCHES
+    got = ms.myers_semiglobal(eq, qt, **kw).cpu().numpy()
+    check(ms.STRIP_LAUNCHES == before + 1, "myers_semiglobal did not run its strip kernel")
+    with OracleSamples() as oracles:
+        oracles.submit(f"myers_semiglobal, {label}, semi-global", rng, queries, subjects, got,
+                       Mode.SEMI_GLOBAL)
+    t = cuda_times_ms(lambda: ms.myers_semiglobal(eq, qt, **kw), runs=5, warmup=1)
+    kernel_ms = statistics.median(t)
+    long_lines[f"myers_semiglobal strips, {label}, semi-global"] = (
+        "myers_semiglobal strips", kernel_ms, strip_work("myers_semiglobal", eq, qt, n))
+    print(f"  the strip kernel at the {label}, semi-global: Q={Q} m={m} S={S} n={n} "
+          f"W={eq.shape[1]}: kernel median {kernel_ms:.4f} ms of 5 ({min(t):.4f}-{max(t):.4f}) "
+          f"= {Q * m * S * n / kernel_ms / 1e6:.1f} GCUPS ({smi})")
     return max(bench[0], *errs), bench[1], bench[2], work
 
 
@@ -408,7 +618,7 @@ def phase_goldens(tmp):
     from bgsa_tpu_torch.pipeline import PipelineConfig
     from bgsa_tpu_torch.pipeline import run_alignment
 
-    print("== phase 4: golden files through bgsa_tpu_torch.pipeline.run_alignment")
+    phase(f"== phase 4: golden files through bgsa_tpu_torch.pipeline.run_alignment")
     cases = [
         (os.path.join(REPO, "sample-data", "query.txt"),
          os.path.join(REPO, "sample-data", "subject.txt"),
@@ -486,13 +696,62 @@ def print_stats(stats_path):
     return st
 
 
-def phase_production(rng, tmp, smi):
+def long_cli_run(rng, tmp, make_testdata, n_q, m, n_s, n, samples, wave):
+    """``bgsa-torch-align`` over n_q x m bp queries and n_s x n bp subjects
+    from ``scripts/make_testdata.py``'s generator (seed 1): every launch the
+    strip kernel's (``wave``: the wavefront's), counted; every score of the
+    result file held to the kernel's on the whole input (for the wavefront's
+    run, many pairs: the strips on one warp a group), and ``samples`` of
+    them to the oracle. Returns the launches."""
+    from bgsa_tpu_torch import cli, pack
+    from bgsa_tpu_torch.io import seqfile
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+    from bgsa_tpu_torch.pack import encode_ascii
     from bgsa_tpu_torch.schemes import Mode
+
+    schedule = "the wavefront" if wave else "one warp a group"
+    print(f"  long subjects: {n_q} x {m} bp queries vs {n_s} x {n} bp subjects "
+          f"({-(-n_s // bucket_subjects(n))} buckets; the strip kernel, {schedule})")
+    qp, sp = os.path.join(tmp, f"query{n_q}_{m}bp.txt"), os.path.join(tmp, f"subj{n_s}_{n}bp.txt")
+    data_rng = np.random.default_rng(1)
+    make_testdata.write_lines(qp, n_q, m, data_rng)
+    make_testdata.write_lines(sp, n_s, n, data_rng)
+    res, stats_path = os.path.join(tmp, "r_long.bin"), os.path.join(tmp, "stats_long.json")
+    ms.LAUNCHES = ms.STRIP_LAUNCHES = ms.WAVE_LAUNCHES = 0
+    rc = cli.align_main(["-q", qp, "-d", sp, "-f", res, "--stats-json", stats_path, "--quiet"])
+    launches = ms.WAVE_LAUNCHES if wave else ms.STRIP_LAUNCHES
+    check(rc == 0, f"bgsa-torch-align exited {rc} on long subjects")
+    check(launches > 0 and launches == ms.LAUNCHES,
+          f"{launches} of {ms.LAUNCHES} launches ran the strip kernel ({schedule})")
+    print(f"  global: exit 0, myers_semiglobal kernel launches {launches}, all of them the "
+          f"strip kernel's ({schedule})")
+    print_stats(stats_path)
+    queries = seqfile.read_queries(qp)
+    subjects = encode_ascii(np.fromfile(sp, np.uint8).reshape(n_s, n + 1)[:, :n])
+    scores = result_scores(res, n_q, n_s, np.int16)
+    before = ms.STRIP_LAUNCHES
+    kernel = ms.myers_semiglobal(pack.pack_eq(torch.from_numpy(subjects).cuda(), 32),
+                                 torch.from_numpy(queries).cuda(), read_len=n,
+                                 is_global=True).cpu().numpy()
+    check(ms.STRIP_LAUNCHES == before + 1,
+          "the whole input did not run the strip kernel on one warp a group")
+    check(np.array_equal(scores, kernel), "a long-subject result file != the kernel's scores")
+    print(f"  every score of the result file equals the kernel's on the whole input "
+          f"({n_q} x {n_s}: one warp a group); {len(np.unique(scores))} distinct scores, "
+          f"{scores.min()} to {scores.max()}")
+    with OracleSamples() as oracles:
+        oracles.submit(f"bgsa-torch-align, {n_q} x {m} bp vs {n_s} x {n} bp", rng, queries,
+                       subjects, scores, Mode.GLOBAL, samples=samples)
+    return launches
+
+
+def phase_production(rng, tmp, smi):
     from bgsa_tpu_torch import cli
     from bgsa_tpu_torch.ops import myers_semiglobal as ms
+    from bgsa_tpu_torch.schemes import Mode
 
     n_queries, n_subjects, length, n_semi = 20, 1_000_000, 150, 100_000
-    print(f"== phase 5: production size, {n_queries} x {length} bp queries vs "
+    phase(f"== phase 5: production size, {n_queries} x {length} bp queries vs "
           f"{n_subjects} x {length} bp subjects through bgsa_tpu_torch.cli ({smi})")
     make_testdata = load_make_testdata()
     data_rng = np.random.default_rng(1)  # scripts/make_testdata.py's seed and order
@@ -524,7 +783,11 @@ def phase_production(rng, tmp, smi):
     print(f"  semi-global on the first {n_semi} subjects: exit 0")
     print_stats(stats_path)
     check_against_oracle(rng, qp, sp_semi, res_semi, Mode.SEMI_GLOBAL, n_semi)
-    return launches, (qp, sp, sp_semi)
+
+    # long subjects: every bucket past the register bound
+    long_launches = [long_cli_run(rng, tmp, make_testdata, *shape, wave)
+                     for shape, wave in zip(LONG_CLI, (False, True))]
+    return (launches, *long_launches), (qp, sp, sp_semi)
 
 
 # -- the banded filter (-k) --------------------------------------------------
@@ -631,7 +894,7 @@ def phase_banded_kernels(rng):
     from bgsa_tpu_torch import pack
     from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
 
-    print("== phase 6: banded kernels vs plain torch versions on the card (tolerance 0)")
+    phase(f"== phase 6: banded kernels vs plain torch versions on the card (tolerance 0)")
     max_err = dict.fromkeys(BANDED_KERNELS, 0)
     for m, n, k in BANDED_GRID:
         engine = BandedEngine(k, device="cuda")
@@ -675,7 +938,7 @@ def phase_banded_bench(rng, smi):
     from bgsa_tpu_torch.ops import banded as banded_ops
     from bgsa_tpu_torch.ops.banded_packed import packed_subbands
 
-    print(f"== phase 7: banded kernel and plain times ({smi})")
+    phase(f"== phase 7: banded kernel and plain times ({smi})")
     n = m = 150
     k = 8
     band_down = banded_ops.geometry(m, n, k)[1]
@@ -784,7 +1047,7 @@ def phase_banded_production(rng, tmp, smi):
     from bgsa_tpu_torch import cli
     from bgsa_tpu_torch.banded_pipeline import BandedEngine
 
-    print(f"== phase 8: banded filter at production size through bgsa_tpu_torch.cli ({smi})")
+    phase(f"== phase 8: banded filter at production size through bgsa_tpu_torch.cli ({smi})")
     t0 = time.perf_counter()
     q, s = filter_mix_dataset(np.random.default_rng(1), 20, BANDED_SUBJECTS, 150)
     runs = {  # the kernel a run takes -> (k, queries, subjects)
@@ -934,19 +1197,22 @@ def phase_bitpal_kernels(rng):
     from bgsa_tpu_torch import pack
     from bgsa_tpu_torch.ops import build
 
-    print("== phase 9: BitPAl kernels vs plain torch versions on the card (tolerance 0)")
+    phase(f"== phase 9: BitPAl kernels vs plain torch versions on the card (tolerance 0)")
     max_err = dict.fromkeys(BITPAL_KERNELS, 0)
     specs = bitpal_specs()
-    for scheme in BITPAL_SCHEMES:
+    modes = ((False, 1), (True, 2))
+    for si, scheme in enumerate(BITPAL_SCHEMES):
         names = [name for name in BITPAL_KERNELS if (name, *scheme) in specs]
-        for n, m, S in BITPAL_GRID:
+        for gi, (n, m, S) in enumerate(BITPAL_GRID):
             qt = torch.from_numpy(random_codes(rng, (3, m), n_rate=0.03)).cuda()
             codes = torch.from_numpy(random_codes(rng, (S, n), n_rate=0.03)).cuda()
             paths = []
-            for word_bits in (31, 32):
+            for bi, word_bits in enumerate((31, 32)):
                 eq = pack.pack_eq(codes, word_bits)
                 W = eq.shape[1]
-                for semi, factor in ((False, 1), (True, 2)):
+                # one mode a word layout, turn about: each scheme and layout
+                # runs both modes over the grid
+                for semi, factor in (modes[(si + gi + bi) % 2],):
                     kw = dict(match=scheme[0], mismatch=scheme[1], gap=scheme[2], read_len=n,
                               factor=factor, semi_global=semi, word_bits=word_bits)
                     for name in names:
@@ -961,8 +1227,9 @@ def phase_bitpal_kernels(rng):
                     if path != "registers" and n == BITPAL_MODEL_N:
                         path += ", and vs the word-major model"
                     paths.append(f"{name}/{word_bits} W={W} {path}")
-            print(f"  {scheme} n={n:4d} m={m:2d} S={S:4d}, both modes: {'; '.join(paths)}: "
-                  "max |diff| 0")
+            first = "global" if (si + gi) % 2 == 0 else "semi-global"
+            print(f"  {scheme} n={n:4d} m={m:2d} S={S:4d}, {first} at 31 bits, the other mode "
+                  f"at 32: {'; '.join(paths)}: max |diff| 0")
     return max_err
 
 
@@ -975,7 +1242,7 @@ def phase_bitpal_bench(rng, smi):
     from bgsa_tpu_torch.ops import bitpal_packed as tbp
     from bgsa_tpu_torch.ops import build
 
-    print(f"== phase 10: BitPAl kernel and plain times, (2,-3,-5) ({smi})")
+    phase(f"== phase 10: BitPAl kernel and plain times, (2,-3,-5) ({smi})")
     results, extra = {}, {}
     routes = (("bitpal_packed", 31), ("bitpal", 32))
     for label, Q, m, S, n in BITPAL_TIMED:
@@ -1048,7 +1315,7 @@ def phase_bitpal_golden(tmp):
     from bgsa_tpu_torch.schemes import Scoring
     from bgsa_tpu_torch.pipeline import run_alignment
 
-    print("== phase 11: the 500 bp BitPAl golden through bgsa_tpu_torch.pipeline.run_alignment")
+    phase(f"== phase 11: the 500 bp BitPAl golden through bgsa_tpu_torch.pipeline.run_alignment")
     for packed in (True, False):
         res, conv = os.path.join(tmp, "bitpal_golden.bin"), os.path.join(tmp, "bitpal_golden.txt")
         reset_bitpal_launches()
@@ -1104,7 +1371,7 @@ def phase_bitpal_production(rng, tmp, smi, inputs):
     from bgsa_tpu_torch.pipeline import Engine
 
     qp, sp, sp_slice = inputs
-    print(f"== phase 12: general scoring at production size through bgsa_tpu_torch.cli ({smi})")
+    phase(f"== phase 12: general scoring at production size through bgsa_tpu_torch.cli ({smi})")
     queries = seqfile.read_queries(qp)
     runs = [  # (flags, scoring, subject file, subject count)
         ([], Scoring(2, -3, -5), sp, BITPAL_SUBJECTS),
@@ -1160,10 +1427,11 @@ def phase_bitpal_production(rng, tmp, smi, inputs):
 MYERS_GLOBAL = ("bgsa_tpu_torch/csrc/myers_pallas.cu", "bgsa_tpu/ops/myers_pallas.py:89")
 INT_PEAK = ("bgsa_tpu_torch/csrc/int_peak.cu", "scripts/roofline.py:187")
 # (n, m, Q, S): every 31-bit word boundary near 31, 62 and 93, the register /
-# scratch switch above 32 words (992 bp), and ragged subject counts
+# strip switch above 32 words (992 bp), the strip boundaries, and ragged
+# subject counts
 MYERS31_GRID = [(n, 150, 3, 1000) for n in (1, 30, 31, 32, 61, 62, 63, 92, 93, 94, 150,
                                             500, 992, 993, 1500)]
-MYERS31_GRID += [(150, 60, 2, 1), (500, 100, 3, 129), (62, 1100, 2, 777)]
+MYERS31_GRID += [(150, 60, 2, 1), (500, 100, 3, 129), (62, 1100, 2, 777)] + STRIP_GRID
 SHARD_SUBJECTS = 20_000  # subjects of the sharded-engine checks (even: two shards)
 # timed shapes (label, Q, m, S, n) of phase 14: the JAX bench's Myers line and
 # one production bucket (S None: the bucket's subject count)
@@ -1178,20 +1446,25 @@ def phase_myers_global_kernel(rng):
     from bgsa_tpu_torch.ops import myers_pallas as mp
     from bgsa_tpu_torch.ops import myers_semiglobal as ms
 
-    print("== phase 13: the 31-bit Myers kernel vs its plain version and the full-word "
+    phase(f"== phase 13: the 31-bit Myers kernel vs its plain version and the full-word "
           "kernel on the card (tolerance 0)")
     reg_words = build.load().lib.bgsa_myers_global_reg_words()
     max_err = 0
     for n, m, Q, S in MYERS31_GRID:
         queries = torch.from_numpy(random_codes(rng, (Q, m), n_rate=0.03)).cuda()
-        codes = torch.from_numpy(random_codes(rng, (S, n), n_rate=0.03)).cuda()
+        if (n, m, Q, S) in STRIP_GRID:
+            codes = torch.from_numpy(skewed_subjects(rng, S, n, n_rate=0.03)).cuda()
+        else:
+            codes = torch.from_numpy(random_codes(rng, (S, n), n_rate=0.03)).cuda()
         eq31, eq32 = pack.pack_eq(codes, 31), pack.pack_eq(codes, 32)
+        # one plain run a geometry: its scores times factor (-1 or +1)
+        plain = mp.myers_global_ref(eq31, queries, read_len=n, factor=1)
         for factor in (-1, 1):
             before = mp.LAUNCHES
             got = mp.myers_global(eq31, queries, read_len=n, factor=factor)
             torch.cuda.synchronize()
             check(mp.LAUNCHES == before + 1, "myers_global did not launch its kernel")
-            want = mp.myers_global_ref(eq31, queries, read_len=n, factor=factor)
+            want = plain * factor
             full = ms.myers_semiglobal(eq32, queries, read_len=n, factor=factor, is_global=True)
             err = int((got.long() - want.long()).abs().max())
             check(err == 0, f"myers_global kernel != plain at n={n} m={m} S={S}")
@@ -1199,33 +1472,39 @@ def phase_myers_global_kernel(rng):
             max_err = max(max_err, err)
         W = eq31.shape[1]
         print(f"  n={n:5d} m={m:5d} Q={Q} S={S:5d} W={W:3d} "
-              f"({'registers' if W <= reg_words else 'scratch'}), factor -1 and +1: "
+              f"({myers_path(W, reg_words, Q, S, m)}), factor -1 and +1: "
               "max |diff| 0 against the plain version, equal to myers_semiglobal's global scores")
     return max_err
 
 
-def phase_myers_global_bench(rng, smi):
-    from bgsa_tpu_torch import roofline
+def phase_myers_global_bench(rng, smi, long_lines):
+    """Both Myers kernels on the same subjects: with their plain versions at
+    MYERS31_TIMED, and past the register bound (the strip kernels, no plain
+    run: it loops over m x W in Python) at MYERS_LONG, held to each other and
+    to oracle samples -> (the 31-bit bench line's (max |diff|, ms, plain
+    ms, Work), {name: (max |diff|, ms, plain ms, Work)} of each strip kernel
+    at STRIP_ROW and of each wavefront at WAVE_ROW, one plain run each)."""
+    from bgsa_tpu_torch import pack, roofline
     from bgsa_tpu_torch.ops import myers_pallas as mp
     from bgsa_tpu_torch.ops import myers_semiglobal as ms
-    from bgsa_tpu_torch.pipeline import BUCKET_SIZE
+    from bgsa_tpu_torch.schemes import Mode
 
-    print(f"== phase 14: 31-bit and full-word Myers times on the same subjects ({smi})")
+    phase(f"== phase 14: 31-bit and full-word Myers times on the same subjects ({smi})")
+    kernels = {"myers_global": (mp.myers_global, mp.myers_global_ref, 31),
+               "myers_semiglobal": (
+                   lambda e, q, **kw: ms.myers_semiglobal(e, q, is_global=True, **kw),
+                   lambda e, q, **kw: ms.myers_semiglobal_ref(e, q, is_global=True, **kw), 32)}
     result = None
     for label, Q, m, S, n in MYERS31_TIMED:
-        S = S or BUCKET_SIZE // (n + 1) // 128 * 128
+        S = S or bucket_subjects(n)
         seed = int(rng.integers(1 << 30))  # the same subjects in both word layouts
-        eq31 = device_eq(np.random.default_rng(seed), S, n, 31)
-        eq32 = device_eq(np.random.default_rng(seed), S, n, 32)
+        eqs = {wb: device_eq(np.random.default_rng(seed), S, n, wb) for wb in (31, 32)}
         qt = torch.from_numpy(random_codes(rng, (Q, m))).cuda()
         cells = Q * m * S * n
         print(f"  {label}: Q={Q} m={m} S={S} n={n}, global")
         times = {}
-        for name, fn, ref, eq in (
-                ("myers_global", mp.myers_global, mp.myers_global_ref, eq31),
-                ("myers_semiglobal", lambda e, q, **kw: ms.myers_semiglobal(e, q, is_global=True,
-                                                                            **kw),
-                 lambda e, q, **kw: ms.myers_semiglobal_ref(e, q, is_global=True, **kw), eq32)):
+        for name, (fn, ref, wb) in kernels.items():
+            eq = eqs[wb]
             got = fn(eq, qt, read_len=n)
             want = ref(eq, qt, read_len=n)
             err = int((got.long() - want.long()).abs().max())
@@ -1240,13 +1519,83 @@ def phase_myers_global_bench(rng, smi):
                   f"over 3 runs; max |diff| {err} ({smi})")
             if name == "myers_global" and result is None:
                 result = (err, kernel_ms, plain_ms, Work(
-                    main_library(), {"W": eq31.shape[1]}, Q * m * S,
-                    roofline.io_bytes(eq31, qt) + 4 * Q * S,
+                    main_library(), {"W": eq.shape[1]}, Q * m * S,
+                    roofline.io_bytes(eq, qt) + 4 * Q * S,
                     roofline.word_kernel_ops("myers_global", Q, m, S, n)))
         check(torch.equal(times["myers_global"], times["myers_semiglobal"]),
               f"the two layouts' scores differ at the {label}")
         print("    both kernels give the same scores")
-    return result
+
+    strips, waves = {}, {}
+    sms = roofline.sm_count(CARD)
+    with OracleSamples() as oracles:  # each shape's samples, checked after the last
+        for label, Q, m, n, S in MYERS_LONG:
+            S = S or bucket_subjects(n)
+            wave = ms.strip_wave(Q, S, m, sms)
+            subjects, queries = skewed_subjects(rng, S, n), random_codes(rng, (Q, m))
+            codes, qt = torch.from_numpy(subjects).cuda(), torch.from_numpy(queries).cuda()
+            print(f"  {label}: Q={Q} m={m} S={S} n={n}, global (the strip kernels, "
+                  f"{'the wavefront' if wave else 'one warp a group'})")
+            outs = {}
+            for name, (fn, ref, wb) in kernels.items():
+                module = mp if wb == 31 else ms
+                eq = pack.pack_eq(codes, wb)
+                before = module.WAVE_LAUNCHES if wave else module.STRIP_LAUNCHES
+                outs[name] = fn(eq, qt, read_len=n)
+                after = module.WAVE_LAUNCHES if wave else module.STRIP_LAUNCHES
+                check(after == before + 1, f"{name} did not run its strip kernel at the {label}")
+                t = cuda_times_ms(lambda: fn(eq, qt, read_len=n), runs=5, warmup=1)
+                kernel_ms, work = statistics.median(t), strip_work(name, eq, qt, n, wave)
+                long_lines[f"{name} strips{' wave' if wave else ''}, {label}"] = (
+                    f"{name} strips{' wave' if wave else ''}", kernel_ms, work)
+                print(f"    {name:16s} W={eq.shape[1]:4d}: kernel median {kernel_ms:.4f} ms of 5 "
+                      f"({min(t):.4f}-{max(t):.4f}) = {Q * m * S * n / kernel_ms / 1e6:.1f} GCUPS "
+                      f"({smi})")
+                del eq
+            check(torch.equal(outs["myers_global"], outs["myers_semiglobal"]),
+                  f"the two strip kernels' scores differ at the {label}")
+            got = outs["myers_global"].cpu().numpy()
+            oracles.submit(f"the strip kernels, {label}", rng, queries, subjects, got, Mode.GLOBAL)
+            print(f"    both kernels give the same scores ({len(np.unique(got))} distinct, "
+                  f"{-got.max() - (n - m)} to {-got.min() - (n - m)} above n - m)")
+
+    # the kernels line's rows: the strip kernels and their wavefronts, each
+    # against its plain version
+    for (Q, m, n, S), wave, rows in ((STRIP_ROW, False, strips), (WAVE_ROW, True, waves)):
+        S = S or bucket_subjects(n)
+        schedule = "the wavefront" if wave else "one warp a group"
+        check(ms.strip_wave(Q, S, m, sms) == wave, f"the row Q={Q} m={m} S={S} is not {schedule}")
+        codes = torch.from_numpy(skewed_subjects(rng, S, n, n_rate=0.03)).cuda()
+        qt = torch.from_numpy(random_codes(rng, (Q, m), n_rate=0.03)).cuda()
+        print(f"  the kernels line's row, {schedule}: Q={Q} m={m} S={S} n={n}, global")
+        outs = {}
+        for name, (fn, ref, wb) in kernels.items():
+            module = mp if wb == 31 else ms
+            eq = pack.pack_eq(codes, wb)
+            before = module.WAVE_LAUNCHES if wave else module.STRIP_LAUNCHES
+            outs[name] = fn(eq, qt, read_len=n)
+            after = module.WAVE_LAUNCHES if wave else module.STRIP_LAUNCHES
+            check(after == before + 1, f"{name} did not run its strip kernel ({schedule})")
+            plain_ms, err = plain_once(ref, eq, qt, n, outs[name])
+            check(err == 0, f"{name} strip kernel ({schedule}) != plain")
+            kernel_ms = statistics.median(cuda_times_ms(lambda: fn(eq, qt, read_len=n),
+                                                        runs=20, warmup=3))
+            rows[name] = (err, kernel_ms, plain_ms, strip_work(name, eq, qt, n, wave))
+            print(f"    {name:16s} W={eq.shape[1]:4d}: kernel median {kernel_ms:.4f} ms over 20 "
+                  f"runs; plain torch {plain_ms:.1f} ms (one run); max |diff| 0 ({smi})")
+        check(torch.equal(outs["myers_global"], outs["myers_semiglobal"]),
+              f"the two strip kernels' scores differ ({schedule})")
+    return result, strips, waves
+
+
+def plain_once(ref, eq, qt, n, got):
+    """(ms of one plain run by CUDA events, max |diff| against ``got``)."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ref(eq, qt, read_len=n)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), int((got.long() - want.long()).abs().max())
 
 
 def equal_engines(make, q, s, label):
@@ -1280,12 +1629,12 @@ def phase_mesh_and_shards(rng, tmp, smi, slice_path):
     from bgsa_tpu_torch.io import result as result_io
     from bgsa_tpu_torch.ops import myers_pallas as mp
     from bgsa_tpu_torch.parallel.mesh import make_mesh, myers_global_sharded
-    from bgsa_tpu_torch.pipeline import BUCKET_SIZE, Engine, PipelineConfig, run_alignment
+    from bgsa_tpu_torch.pipeline import Engine, PipelineConfig, run_alignment
     from bgsa_tpu_torch.schemes import Scoring, normalize
 
-    print(f"== phase 15: the device mesh and --shards on one card, cuda:0 repeated ({smi})")
+    phase(f"== phase 15: the device mesh and --shards on one card, cuda:0 repeated ({smi})")
     Q, n = 20, 150
-    S = BUCKET_SIZE // (n + 1) // 128 * 128
+    S = bucket_subjects(n)
     eq31 = device_eq(rng, S, n, 31)
     qt = torch.from_numpy(random_codes(rng, (Q, n))).cuda()
     single = mp.myers_global(eq31, qt, read_len=n).cpu().numpy()
@@ -1302,6 +1651,31 @@ def phase_mesh_and_shards(rng, tmp, smi, slice_path):
     print(f"  myers_global_sharded over a {mesh.shape} mesh of cuda:0 at the production bucket "
           f"(Q={Q}, S={S}, n={n}): merge=False and merge=True equal the one-device kernel; "
           f"myers_global launches {launches}")
+    # past the register bound: the card-filling shape (every shard the strip
+    # kernel on one warp a group) and the 40 kbp bucket (few pairs: the
+    # wavefront; a 5 kbp bucket's shards are few pairs too)
+    strip_launched = []
+    for (label, lq, lm, ln, ls), wave in ((MYERS_LONG[4], False), (MYERS_LONG[3], True)):
+        ls = ls or bucket_subjects(ln)
+        long_eq = pack.pack_eq(torch.from_numpy(skewed_subjects(rng, ls, ln)).cuda(), 31)
+        long_q = torch.from_numpy(random_codes(rng, (lq, lm))).cuda()
+        one = mp.myers_global(long_eq, long_q, read_len=ln).cpu().numpy()
+        mp.LAUNCHES = mp.STRIP_LAUNCHES = mp.WAVE_LAUNCHES = 0
+        sharded = myers_global_sharded(long_eq, long_q, mesh, read_len=ln)
+        merged = myers_global_sharded(long_eq, long_q, mesh, read_len=ln, merge=True)
+        torch.cuda.synchronize()
+        ran = mp.WAVE_LAUNCHES if wave else mp.STRIP_LAUNCHES
+        schedule = "the wavefront" if wave else "one warp a group"
+        check(ran == mp.LAUNCHES == 8,
+              f"the mesh path ran the strip kernel ({schedule}) {ran} of {mp.LAUNCHES} times, "
+              "not 4 + 4")
+        check(np.array_equal(np.asarray(sharded), one), f"sharded != one device at {label}")
+        check(np.array_equal(merged.cpu().numpy(), one), f"merged != one device at {label}")
+        print(f"  the same at the {label} (Q={lq}, m={lm}, S={ls}, n={ln}, "
+              f"W={long_eq.shape[1]}): equal to the one-device kernel; strip-kernel launches "
+              f"({schedule}) {ran}")
+        strip_launched.append(ran)
+        del long_eq
 
     # the engines on two shards against one device, 2-bit and 2bit+N transports
     queries = random_codes(rng, (Q, n))
@@ -1367,13 +1741,13 @@ def phase_mesh_and_shards(rng, tmp, smi, slice_path):
             "use --shards 0 for all local devices")
     check(rc == 1 and want in err.getvalue(), f"--shards {too_many}: rc {rc}, {err.getvalue()!r}")
     print(f"  --shards {too_many}: exit 1, {err.getvalue().strip()!r}")
-    return launches
+    return launches, *strip_launched
 
 
 def phase_int_peak(smi):
     from bgsa_tpu_torch import roofline
 
-    print(f"== phase 16: the int32 ALU issue peak ({smi})")
+    phase(f"== phase 16: the int32 ALU issue peak ({smi})")
     sms, clock = roofline.sm_count(), roofline.sm_clock_mhz()
     derived = roofline.derived_int32_peak(clock, sms)
     roofline.LAUNCHES = 0  # the bound path: the measurement itself
@@ -1505,7 +1879,7 @@ def phase_pair_kernels(rng):
     from bgsa_tpu_torch.ops import banded as bo
     from bgsa_tpu_torch.ops import banded_packed as bpk
 
-    print("== phase 17: the paired-query kernels and the banded probes vs their plain versions, "
+    phase(f"== phase 17: the paired-query kernels and the banded probes vs their plain versions, "
           "and each pair vs the kernel it pairs, on the card (tolerance 0)")
     max_err = dict.fromkeys([*PAIR_KERNELS, *PACKED_PROBES], 0)
     before = pair_launches()
@@ -1569,7 +1943,7 @@ def phase_experiments(smi):
     from bgsa_tpu_torch.scripts import exp_banded_packed_pair as packed_exp
     from bgsa_tpu_torch.scripts import exp_banded_pair as pair_exp
 
-    print(f"== phase 18: the paired-query experiments at their own shapes ({smi})")
+    phase(f"== phase 18: the paired-query experiments at their own shapes ({smi})")
     reset_pair_launches()
     try:
         stream_run = pair_exp.run(CARD)
@@ -1623,7 +1997,7 @@ def phase_experiments(smi):
 
 def phase_kprint():
     """The fixture in a child process -> its JSON result (launches, ms, plain ms)."""
-    print("== phase 19: the kprint fixture in a child process (python -m bgsa_tpu_torch.debug)")
+    phase(f"== phase 19: the kprint fixture in a child process (python -m bgsa_tpu_torch.debug)")
     proc = subprocess.run([sys.executable, "-m", "bgsa_tpu_torch.debug"], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0,
@@ -1646,7 +2020,7 @@ def phase_kprint():
 def phase_gpu_parity():
     from bgsa_tpu_torch.scripts import gpu_parity
 
-    print("== phase 20: bgsa_tpu_torch.scripts.gpu_parity (every kernel family vs the oracles)")
+    phase(f"== phase 20: bgsa_tpu_torch.scripts.gpu_parity (every kernel family vs the oracles)")
     rc = gpu_parity.main([])
     check(rc == 0, f"gpu_parity exited {rc}")
 
@@ -1664,7 +2038,8 @@ def library_sass(library, sass) -> dict:
 
 def design_sass(work, sass):
     """Instructions per pipe of one trip of the design's own loop
-    (``Work.design``; BitPAl's tiled kernel: one word-column), or None."""
+    (``Work.design``; BitPAl's tiled kernel and the Myers strip kernels: one
+    word-column), or None."""
     from bgsa_tpu_torch import roofline
 
     if work.design is None:
@@ -1679,9 +2054,10 @@ def kernel_bound(name, ms, work, sass, peak_ops_per_s):
     JAX-op share) of one kernel row."""
     from bgsa_tpu_torch import roofline
 
-    if name not in roofline.SASS_SPECS:  # computes nothing: its bytes bound it
+    spec_name = work.bound_spec or name
+    if spec_name not in roofline.SASS_SPECS:  # computes nothing: its bytes bound it
         return (*roofline.bound(0, work.nbytes, 1.0), None, None, None)
-    spec = roofline.SASS_SPECS[name]
+    spec = roofline.SASS_SPECS[spec_name]
     per_column = roofline.column_instructions(
         roofline.find_function(library_sass(work.library, sass),
                                spec.function.format(**work.shape)), spec)
@@ -1707,13 +2083,14 @@ def main() -> int:
         print(f"FAIL: bgsa_tpu_torch imported from {pkg_dir}, not this checkout", file=sys.stderr)
         return 1
     rng = np.random.default_rng(2026)
+    long_lines = {}  # label -> (row name, ms, Work) of the strip kernels' other shapes
     try:
         smi = phase_environment()
         max_err = phase_kernel_vs_plain(rng)
-        bench_err, kernel_ms, plain_ms, myers_work = phase_bench(rng, smi)
+        bench_err, kernel_ms, plain_ms, myers_work = phase_bench(rng, smi, long_lines)
         with tempfile.TemporaryDirectory(prefix="bgsa_smoke_") as tmp:
             phase_goldens(tmp)
-            launches, inputs = phase_production(rng, tmp, smi)
+            (launches, strip_launches, wave_launches), inputs = phase_production(rng, tmp, smi)
             banded_err = phase_banded_kernels(rng)
             banded_times = phase_banded_bench(rng, smi)
             banded_launched, production_err = phase_banded_production(rng, tmp, smi)
@@ -1723,8 +2100,10 @@ def main() -> int:
             bitpal_launched, bitpal_production_err = phase_bitpal_production(
                 rng, tmp, smi, inputs)
             global_err = phase_myers_global_kernel(rng)
-            global_times = phase_myers_global_bench(rng, smi)
-            global_launched = phase_mesh_and_shards(rng, tmp, smi, inputs[2])
+            global_times, strip_times, wave_times = phase_myers_global_bench(
+                rng, smi, long_lines)
+            global_launched, global_strip_launched, global_wave_launched = (
+                phase_mesh_and_shards(rng, tmp, smi, inputs[2]))
         peak, peak_err, peak_launched, peak_plain, peak_work = phase_int_peak(smi)
         pair_err = phase_pair_kernels(rng)
         pair_launched, pair_rows = phase_experiments(smi)
@@ -1739,6 +2118,11 @@ def main() -> int:
     # (name, source, replaces, launches on its path, max |diff|, ms, plain ms, Work)
     rows = [("myers_semiglobal", KERNEL_SOURCE, KERNEL_REPLACES, launches,
              max(max_err, bench_err), kernel_ms, plain_ms, myers_work)]
+    for label, times, launched in (("strips", strip_times, strip_launches),
+                                   ("strips wave", wave_times, wave_launches)):
+        err, ms, plain, work = times["myers_semiglobal"]
+        rows.append((f"myers_semiglobal {label}", KERNEL_SOURCE, KERNEL_REPLACES, launched,
+                     max(err, max_err), ms, plain, work))
     device = {}  # name -> device ms of a CUDA graph's replays, where taken
     for name, (source, replaces) in BANDED_KERNELS.items():
         err, ms, plain, work, device[name] = banded_times[name]
@@ -1751,6 +2135,11 @@ def main() -> int:
     err, ms, plain, work = global_times
     rows.append(("myers_global", *MYERS_GLOBAL, global_launched, max(err, global_err), ms, plain,
                  work))
+    for label, times, launched in (("strips", strip_times, global_strip_launched),
+                                   ("strips wave", wave_times, global_wave_launched)):
+        err, ms, plain, work = times["myers_global"]
+        rows.append((f"myers_global {label}", *MYERS_GLOBAL, launched, max(err, global_err), ms,
+                     plain, work))
     rows.append(("int_peak", *INT_PEAK, peak_launched, peak_err, peak["ms"], peak_plain,
                  peak_work))
     for name, (source, replaces) in PAIR_KERNELS.items():
@@ -1759,7 +2148,7 @@ def main() -> int:
                      plain, work))
     rows.append(("kprint_probe", *KPRINT, kprint["launches"], 0, kprint["ms"], kprint["plain_ms"],
                  Work(None, {}, 0, 2 * 4 * 8 * 128, None)))
-    print("== bounds: each kernel's SASS per column at the slowest pipe's rate, or its bytes")
+    phase(f"== bounds: each kernel's SASS per column at the slowest pipe's rate, or its bytes")
     kernels, sass = [], {}
     try:
         for name, source, replaces, launched, err, ms, plain, work in rows:
@@ -1779,26 +2168,26 @@ def main() -> int:
             if jax_share is not None:
                 how += f"; vs JAX-op count at the peak mix's rate {100 * jax_share:.1f} %"
             if work.design:
-                how += (f" (the register network's, per word-column); the tiled kernel's own "
-                        f"{design['alu']:.1f} ALU, {design['issue']:.1f} issued, not in the bound")
+                how += (f" (the register network's, per word-column); the design's own "
+                        f"{design['alu']:.2f} ALU, {design['issue']:.2f} issued, not in the bound")
             if work.state_bytes:
-                how += f"; state {work.state_bytes / 1e9:.3f} GB through the scratch, not bound"
+                how += f"; state {work.state_bytes / 1e9:.3f} GB through memory, not bound"
             print(f"  {name:21s} {ms:10.4f} ms, bound {bound_ms:10.4f} ms by {bound_by} "
                   f"({100 * bound_ms / ms:.1f} % of the time; {how}); launches {launched}")
-        for label, (name, ms, work) in bitpal_lines.items():  # the other BitPAl lines
+        for label, (name, ms, work) in {**bitpal_lines, **long_lines}.items():  # other lines
             bound_ms, bound_by, pipe, per_column, _ = kernel_bound(
                 name, ms, work, sass, peak["ops_per_s"])
             design = design_sass(work, sass)
-            own = (f"; the tiled kernel's own {design['alu']:.1f} ALU, {design['issue']:.1f} "
+            own = (f"; the design's own {design['alu']:.2f} ALU, {design['issue']:.2f} "
                    "issued, not in the bound" if design else "")
             print(f"  {label}: {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-                  f"({100 * bound_ms / ms:.1f} %; {pipe} pipe, register SASS per "
-                  f"{'word-' if work.design else ''}column {per_column['alu']:.1f} ALU, "
-                  f"{per_column['issue']:.1f} issued{own}; state "
-                  f"{work.state_bytes / 1e9:.3f} GB through the scratch)")
+                  f"({100 * bound_ms / ms:.1f} %; {pipe} pipe, register SASS per column "
+                  f"{per_column['alu']:.1f} ALU, {per_column['issue']:.1f} issued{own}; state "
+                  f"{work.state_bytes / 1e9:.3f} GB through memory)")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    phase("== done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,8 +8,8 @@ parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists. The two trees run in turns, other / this / this /
 other, each turn a child process started in its tree, so each builds and
 imports its own ``bgsa_tpu_torch``. PART names what a turn runs
-(``bitpal``, ``cli``, ``banded``, ``generic``, ``stream``; default all
-five). A turn prints:
+(``bitpal``, ``cli``, ``banded``, ``generic``, ``stream``, ``myers_long``;
+default all six). A turn prints:
 
 - the registers, stack and shared memory of every ``banded_packed_kernel``
   instance in the tree's main kernel library, (``stream``) of every
@@ -40,7 +40,23 @@ five). A turn prints:
   bench line's geometry (150 bp, k = 8), the stream kernel at its own
   (150 bp queries, 150 and 181 bp subjects, k = 16: band_down 32 and 63)
   and the dual kernel at its own (150 vs 148 bp, k = 8; 100 vs 95 bp,
-  k = 20).
+  k = 20);
+- ``myers_long``: the registers, stack and shared memory of every Myers
+  kernel (both layouts), then both Myers kernels past their register bound
+  (full-word ``myers_semiglobal``, 31-bit ``myers_global``) timed by CUDA
+  events (median of 3 after a warm-up; every shape runs well over 0.2 ms)
+  on the same subjects (A but for each one's own share of C, G and T,
+  log-uniform from 0.0003 to 0.75, so that the scores spread), with
+  output checksums, at ``MYERS_LONG``: Q=20
+  queries of 1,000 bp against one database bucket of 5, 10, 20 and 40 kbp
+  subjects (the subject count ``io.seqfile.DatabaseReader`` cuts from
+  ``pipeline.BUCKET_SIZE``: 5,632, 2,816, 1,408 and 640), global, the
+  5 kbp bucket also semi-global (full-word only), and the card-filling
+  shape (Q=40, m=500, S=32,768, 5 kbp subjects: Eq beyond L2); then
+  ``bgsa-torch-align`` twice over 20 x 5,000 bp queries and 20,000 x
+  5,000 bp subjects (``scripts/make_testdata.py``'s generator, seed 1:
+  four buckets), each run's RunStats, kernel launches and result
+  checksum.
 
 Exits with the first failing turn's code.
 """
@@ -70,6 +86,8 @@ if "stream" in parts:
     libs.append((build.load().path, "banded_stream_kernel"))
 if "bitpal" in parts:
     libs.append((build.load_scheme("bitpal", 2, -3, -5).path, "kernel"))
+if "myers_long" in parts:
+    libs += [(build.load().path, "myers"), (build.load().path, "global31")]
 for path, pattern in libs:
     usage = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-res-usage", path],
                            capture_output=True, text=True, check=True).stdout
@@ -95,6 +113,62 @@ if "cli" in parts:
     import probe_banded
     with tempfile.TemporaryDirectory(prefix="bgsa_ab_") as tmp:
         probe_banded.cli_runs(tmp)
+# (label, Q, m, n, S or None for a bucket's count, modes: True = global)
+MYERS_LONG = (("5 kbp bucket", 20, 1000, 5000, None, (True, False)),
+              ("10 kbp bucket", 20, 1000, 10000, None, (True,)),
+              ("20 kbp bucket", 20, 1000, 20000, None, (True,)),
+              ("40 kbp bucket", 20, 1000, 40000, None, (True,)),
+              ("card-filling", 40, 500, 5000, 32768, (True,)))
+if "myers_long" in parts:
+    from bgsa_tpu_torch import pack
+    from bgsa_tpu_torch.ops import myers_pallas as mp
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+    from bgsa_tpu_torch.pipeline import BUCKET_SIZE
+    for label, Q, m, n, S, modes in MYERS_LONG:
+        S = S or BUCKET_SIZE // (n + 1) // 128 * 128
+        # the same subjects in both trees and layouts: A but for each
+        # subject's own share of C, G and T, log-uniform from 0.0003 to 0.75
+        # (chip_smoke.skewed_subjects), so that a query is seldom a
+        # subsequence of a strip and the scores spread above n - m
+        lrng = np.random.default_rng(n + S)
+        miss = np.exp(lrng.uniform(np.log(3e-4), np.log(0.75), size=(S, 1))).astype(np.float32)
+        codes = np.where(lrng.random((S, n), dtype=np.float32) < miss,
+                         lrng.integers(1, 4, size=(S, n), dtype=np.int8), np.int8(0))
+        codes = torch.from_numpy(codes).cuda()
+        qt = torch.from_numpy(lrng.integers(0, 4, size=(Q, m)).astype(np.int32)).cuda()
+        runs = [("myers_semiglobal", g, pack.pack_eq(codes, 32)) for g in modes]
+        runs.append(("myers_global", True, pack.pack_eq(codes, 31)))
+        del codes
+        for name, is_global, eq in runs:
+            if name == "myers_global":
+                run = lambda: mp.myers_global(eq, qt, read_len=n)
+            else:
+                run = lambda: ms.myers_semiglobal(eq, qt, read_len=n, is_global=is_global)
+            checksum = int(run().long().sum())
+            t = chip_smoke.cuda_times_ms(run, runs=3, warmup=1)
+            print(f"  {name} {'global' if is_global else 'semi-global'}, {label}: Q={Q} m={m} "
+                  f"S={S} n={n} W={eq.shape[1]}: kernel median {statistics.median(t):.4f} ms of "
+                  f"3 ({min(t):.4f}-{max(t):.4f}); output checksum {checksum} ({smi})", flush=True)
+        del runs
+    import importlib.util, tempfile
+    from bgsa_tpu_torch import cli
+    spec = importlib.util.spec_from_file_location("make_testdata", "scripts/make_testdata.py")
+    make_testdata = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make_testdata)
+    with tempfile.TemporaryDirectory(prefix="bgsa_ab_") as tmp:
+        data_rng = np.random.default_rng(1)  # scripts/make_testdata.py's seed and order
+        qp, sp = os.path.join(tmp, "q.txt"), os.path.join(tmp, "s.txt")
+        make_testdata.write_lines(qp, 20, 5000, data_rng)
+        make_testdata.write_lines(sp, 20000, 5000, data_rng)
+        res, stats = os.path.join(tmp, "r.bin"), os.path.join(tmp, "stats.json")
+        for i in range(2):
+            before = ms.LAUNCHES
+            rc = cli.align_main(["-q", qp, "-d", sp, "-f", res, "--stats-json", stats, "--quiet"])
+            checksum = int(np.fromfile(res, dtype=np.int16).astype(np.int64).sum())
+            print(f"  bgsa-torch-align, 20 x 5,000 bp vs 20,000 x 5,000 bp, run {i}: exit {rc}, "
+                  f"myers_semiglobal launches {ms.LAUNCHES - before}, result checksum "
+                  f"{checksum} ({smi})")
+            chip_smoke.print_stats(stats)
 rng = np.random.default_rng(2026)
 lines = []  # (label, Q, S, [(m, n, k), ...])
 for label, Q, S in chip_smoke.BANDED_TIMED * ("banded" in parts):
@@ -154,7 +228,7 @@ for label, Q, S, geometries in lines:
 """
 
 
-PARTS = ("bitpal", "cli", "banded", "generic", "stream")
+PARTS = ("bitpal", "cli", "banded", "generic", "stream", "myers_long")
 
 
 def main(argv) -> int:

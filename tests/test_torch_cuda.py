@@ -40,18 +40,65 @@ def codes(rng, shape):
     return c
 
 
-@pytest.mark.parametrize("n", [1, 32, 33, 150, 1025, 1100])  # 1100: scratch-state path
+def skewed(rng, shape):
+    """(S, n) subjects, A but for a share of C, G and T of each subject's own
+    (log-uniform from 0.0003 to 0.75), and 3 % N. A uniform query of m << n
+    bases is a subsequence of a uniform subject's first strip, so that every
+    later strip sees the same carries at every column; against these the
+    carries between strips differ from pair to pair and column to column."""
+    miss = np.exp(rng.uniform(np.log(3e-4), np.log(0.75), size=(shape[0], 1)))
+    c = np.where(rng.random(shape) < miss, rng.integers(1, 4, size=shape), 0).astype(np.int32)
+    c[rng.random(shape) < 0.03] = 4
+    return c
+
+
+# past 1,024 bp (32 words) the strip kernel: 1,025 and 1,100 two strips, the
+# last of one and three words; 2,048 / 2,049 two full strips / a third of one
+# word; 5,000 and 10,000 bp five and ten strips
+@pytest.mark.parametrize("n", [1, 32, 33, 150, 1024, 1025, 1100, 2048, 2049, 5000, 10000])
 @pytest.mark.parametrize("is_global,factor", [(True, -1), (False, 1)])
 def test_kernel_matches_plain(cuda, n, is_global, factor):
     rng = np.random.default_rng(n)
     q = torch.from_numpy(codes(rng, (3, 70))).to(cuda)
-    eq = pack.pack_eq(torch.from_numpy(codes(rng, (300, n))).to(cuda), 32)
-    before = sg.LAUNCHES
+    eq = pack.pack_eq(torch.from_numpy(skewed(rng, (300, n))).to(cuda), 32)
+    before, strips = sg.LAUNCHES, sg.STRIP_LAUNCHES
     got = sg.myers_semiglobal(eq, q, read_len=n, factor=factor, is_global=is_global)
     torch.cuda.synchronize()
     assert sg.LAUNCHES == before + 1
+    # three batches of columns: never the wavefront
+    assert sg.STRIP_LAUNCHES == strips + (eq.shape[1] > build.load().reg_words)
     want = sg.myers_semiglobal_ref(eq, q, read_len=n, factor=factor, is_global=is_global)
     assert torch.equal(got, want)
+
+
+# (Q, S, m, n, wavefront) past the register bound: the strips of a group of
+# 32 subjects on one warp (many pairs, or three batches of columns) and as
+# a wavefront over four warps (few pairs: five and ten strips, seven
+# batches; two strips, four batches); and queries as long as the subjects
+# on both schedules
+STRIP_SCHEDULES = [(20, 5000, 40, 1100, False), (3, 300, 70, 2049, False),
+                   (3, 300, 200, 5000, True), (2, 77, 200, 10000, True), (3, 100, 128, 1100, True),
+                   (34, 1000, 1025, 1025, False), (3, 300, 1025, 1025, True)]
+
+
+@pytest.mark.parametrize("Q,S,m,n,wave", STRIP_SCHEDULES)
+def test_strip_kernels_on_one_warp_and_as_a_wavefront_match_plain(cuda, Q, S, m, n, wave):
+    rng = np.random.default_rng(n + m)
+    q = torch.from_numpy(codes(rng, (Q, m))).to(cuda)
+    subjects = torch.from_numpy(skewed(rng, (S, n))).to(cuda)
+    assert sg.strip_wave(Q, S, m, roofline.sm_count(cuda)) is wave
+    for module, word_bits in ((sg, 32), (mp, 31)):
+        eq = pack.pack_eq(subjects, word_bits)
+        before = (module.STRIP_LAUNCHES, module.WAVE_LAUNCHES)
+        if module is sg:
+            got = sg.myers_semiglobal(eq, q, read_len=n, is_global=False)
+            want = sg.myers_semiglobal_ref(eq, q, read_len=n, is_global=False)
+        else:
+            got = mp.myers_global(eq, q, read_len=n)
+            want = mp.myers_global_ref(eq, q, read_len=n)
+        assert (module.STRIP_LAUNCHES, module.WAVE_LAUNCHES) == (before[0] + (not wave),
+                                                                  before[1] + wave)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("mode", [Mode.GLOBAL, Mode.SEMI_GLOBAL])
@@ -291,17 +338,23 @@ def test_bitpal_scheme_library_is_built_once(bitpal_cuda):
 # -- the 31-bit Myers kernel, the mesh, the engines on shards, the int32 peak -----
 
 
-@pytest.mark.parametrize("n", [1, 31, 32, 62, 93, 150, 992, 993, 1500])  # 993+: scratch path
+# past 992 bp (32 words of 31 bits) the strip kernel: 993 and 1,500 bp two
+# strips; 1,024 / 1,025, 2,048 / 2,049, 5,000 and 10,000 bp as the full-word
+# test's (the 31-bit strips end at 992, 1,984, ... bp)
+@pytest.mark.parametrize("n", [1, 31, 32, 62, 93, 150, 992, 993, 1024, 1025, 1500, 2048, 2049,
+                               5000, 10000])
 @pytest.mark.parametrize("factor", [-1, 1])
 def test_myers_global_matches_plain_and_full_word(cuda, n, factor):
     rng = np.random.default_rng(n)
     q = torch.from_numpy(codes(rng, (3, 70))).to(cuda)
-    subjects = torch.from_numpy(codes(rng, (300, n))).to(cuda)
+    subjects = torch.from_numpy(skewed(rng, (300, n))).to(cuda)
     eq = pack.pack_eq(subjects, 31)
-    before = mp.LAUNCHES
+    before, strips = mp.LAUNCHES, mp.STRIP_LAUNCHES
     got = mp.myers_global(eq, q, read_len=n, factor=factor)
     torch.cuda.synchronize()
     assert mp.LAUNCHES == before + 1
+    reg_words = build.load().lib.bgsa_myers_global_reg_words()
+    assert mp.STRIP_LAUNCHES == strips + (eq.shape[1] > reg_words)
     assert torch.equal(got, mp.myers_global_ref(eq, q, read_len=n, factor=factor))
     full = sg.myers_semiglobal(pack.pack_eq(subjects, 32), q, read_len=n, factor=factor,
                                is_global=True)
@@ -342,6 +395,9 @@ def test_banded_engine_on_two_shards_of_the_card(cuda, m, n, k):
 
 @pytest.mark.parametrize("name,shape,library", [
     ("myers_semiglobal", {"W": 16}, None), ("myers_global", {"W": 17}, None),
+    ("myers_semiglobal", {"W": 32}, None), ("myers_global", {"W": 32}, None),
+    ("myers_semiglobal_strips", {}, None), ("myers_global_strips", {}, None),
+    ("myers_semiglobal_wave", {}, None), ("myers_global_wave", {}, None),
     ("banded_stream", {"wide": 0}, None), ("banded_stream", {"wide": 1}, None),
     ("banded_stream_dual", {"wide": 0}, None), ("banded_stream_dual", {"wide": 1}, None),
     ("banded", {}, None),

@@ -396,6 +396,63 @@ def test_sass_tiled_kernel_counts_one_word_column():
     assert per == {"issue": 9, "alu": 2, "fma": 1}
 
 
+def strip_kernel(words, code):
+    """The Myers strip kernels' loops as they compile: a batch loop (the
+    carry words of 32 columns loaded, and in the wavefront a lane's query
+    code; the carries stored; the wavefront's barrier) around the column
+    loop (the code, ``code``: from the staged row or shuffled from its lane;
+    the carry bits out of the words, ``words`` guarded word copies of 3
+    instructions, the bits packed back)."""
+    body = [("", "S2R R0, SR_TID.X"), ("", "LDG.E R40, desc[UR4][R8.64]", "batch"),
+            ("", "LDG.E R41, desc[UR4][R10.64]"), ("", "LDG.E.U8 R44, desc[UR4][R12.64]"),
+            ("", code, "col"),
+            ("", "SHF.R.U32.HI R42, RZ, R7, R40"), ("", "LOP3.LUT R42, R42, 0x1, RZ, 0xc0, !PT")]
+    for j in range(words):
+        body += [("", f"ISETP.GE.AND P0, PT, R46, {j + 1:#x}, PT"), ("@!P0", f"BRA @g{j}"),
+                 ("", "LDG.E.CONSTANT R28, desc[UR10][R28.64]"),
+                 ("", "LOP3.LUT R31, R47, R20, RZ, 0xc0, !PT"),
+                 ("", "IMAD.SHL.U32 R48, R31, 0x2, RZ", f"g{j}")]
+    body += [("", "SHF.L.U32 R43, R42, R7, RZ"), ("", "LOP3.LUT R44, R44, R43, RZ, 0xfc, !PT"),
+             ("", "VIADD R7, R7, 0x1"), ("@!P1", "BRA @col"),
+             ("", "STG.E desc[UR4][R8.64], R44"), ("", "BAR.SYNC.DEFER_BLOCKING 0x0"),
+             ("@!P2", "BRA @batch"), ("", "EXIT")]
+    return body
+
+
+@pytest.mark.parametrize("name,kernel,other,code", [
+    ("myers_semiglobal_strips", "myers_strips", "myers_strips_wave", "LDS.U8 R45, [R3+UR9]"),
+    ("myers_global_strips", "global31_strips", "global31_strips_wave", "LDS.U8 R45, [R3+UR9]"),
+    ("myers_semiglobal_wave", "myers_strips_wave", "myers_strips",
+     "SHFL.IDX PT, R45, R44, R7, 0x1f"),
+    ("myers_global_wave", "global31_strips_wave", "global31_strips",
+     "SHFL.IDX PT, R45, R44, R7, 0x1f")])
+def test_sass_strip_kernel_counts_one_word_column(name, kernel, other, code):
+    # the strip kernel's column loop holds one column of 32 words: its
+    # count, per word-column, is the design's; neither the register
+    # instance beside it (the bound's) nor the other schedule of the strips
+    # is the one the pattern finds
+    spec = roofline.SASS_SPECS[name]
+    assert (spec.anchor, spec.words) == (code.split()[0], 32)
+    strips = f"_ZN4anon{len(kernel)}{kernel}EPKjPKhPiPjiiiiiii"
+    regs = "_ZN4anon10myers_regsILi32EEEvPKjPKhPiiiiiiii"
+    functions = roofline.sass_functions(
+        listing(strips, strip_kernel(32, code)) + listing(regs, word_kernel(32))
+        + listing(f"_ZN4anon{len(other)}{other}EPKjPKhPiPjiiiiiii", strip_kernel(32, code)))
+    ins = roofline.find_function(functions, spec.function)
+    assert ins is functions[strips]
+    per = roofline.column_instructions(ins, spec)
+    # the code, SHF, LOP3, 32 x (ISETP, BRA, LDG, LOP3, IMAD), SHF, LOP3,
+    # VIADD, BRA: 167 issued (ALU: SHF, LOP3, 32 x (ISETP, LOP3), SHF, LOP3;
+    # FMA: 32 IMAD) over 32 word-columns; the batch loop's loads, stores and
+    # barrier lie outside the column loop
+    assert per == {"issue": 167 / 32, "alu": 68 / 32, "fma": 1}
+    bound = roofline.column_instructions(
+        roofline.find_function(functions, roofline.SASS_SPECS["myers_semiglobal"].function
+                               .format(W=32)), roofline.SASS_SPECS["myers_semiglobal"])
+    # the register network's own column: LDS, 32 x 5, IADD3, back edge
+    assert bound == {"issue": 163, "alu": 65, "fma": 32}
+
+
 def test_sass_peak_kernel_step_from_its_main_loop():
     step = [("", "IMAD.IADD R4, R4, 0x1, R2"), ("", "SHF.R.U32.HI R5, RZ, 0x1, R4"),
             ("", "LOP3.LUT R4, R4, R5, R2, 0x1e, !PT"), ("", "IMAD.SHL.U32 R5, R4, 0x2, RZ"),
