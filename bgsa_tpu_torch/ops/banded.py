@@ -16,11 +16,13 @@ queries as a batch dimension, the band register as native int64 (the TPU's
 (lo, hi) uint32 pairs become one word). int64 ``>>`` is arithmetic, so every
 right shift goes through ``shr``. Each wrapper runs its plain version for a
 CPU tensor and launches its hand-written kernel (``csrc/banded.cu``) for a
-CUDA tensor, counting launches in ``LAUNCHES[name]``. The stream kernels
-fold each column from a window loaded once per 32 columns and latch over
-budget at other columns than the reference; ``windowed_stream_columns`` and
-``windowed_stream_ref`` are that schedule in plain torch, used by the tests
-only.
+CUDA tensor, counting launches in ``LAUNCHES[name]``. The kernels fold
+each column from a window loaded once per 32 columns and latch over budget
+at other columns than the reference; ``windowed_stream_columns`` /
+``windowed_stream_ref`` (the stream and dual kernels) and
+``windowed_peq_columns`` / ``windowed_peq_ref`` (the Peq-carry kernel, whose
+planes become two streams: the initial window and the injections shifted
+to band_down + 1) are that schedule in plain torch, used by the tests only.
 
 The geometry helpers (``geometry``, ``chk_array``) mirror the JAX module's
 ``_geometry``/``_chk_array``, which cannot be imported here: that module
@@ -197,7 +199,7 @@ def banded_stream_dual_ref(streams, queries, *, q_len: int, s_len: int, k: int):
                  dual_window_at(streams, q_len, s_len, k), q_len=q_len, s_len=s_len, k=k)
 
 
-# -- the stream kernels' schedule (csrc/banded.cu), used by the tests ----------
+# -- the window kernels' schedule (csrc/banded.cu), used by the tests ----------
 
 
 def column_eq(fields, codes):
@@ -245,7 +247,7 @@ def windowed_stream_columns(streams, *, q_len: int, s_len: int, k: int, dual: bo
 
 
 def kernel_latch_array(q_len: int, s_len: int, k: int) -> np.ndarray:
-    """(q_len,) int32, 1 at column t when the stream kernels latch after it:
+    """(q_len,) int32, 1 at column t when the window kernels latch after it:
     the 32-column batch ends <= the last checkpoint, and the last checkpoint
     (err is nondecreasing, so the outcome is the reference's)."""
     last = last_checkpoint(q_len, s_len, k)
@@ -253,42 +255,109 @@ def kernel_latch_array(q_len: int, s_len: int, k: int) -> np.ndarray:
                      for t in range(q_len)], np.int32)
 
 
-def windowed_stream_ref(streams, queries, *, q_len: int, s_len: int, k: int, dual: bool = False):
-    """The stream kernels' schedule end to end: every column's register from
-    ``windowed_stream_columns`` and dead latched at ``kernel_latch_array``;
-    equal to ``banded_stream_ref`` / ``banded_stream_dual_ref``."""
-    columns = windowed_stream_columns(streams, q_len=q_len, s_len=s_len, k=k, dual=dual)
+def _windowed_scan(columns, queries, S: int, *, q_len: int, s_len: int, k: int):
+    """``_scan`` over a windowed schedule's registers (``columns`` yields
+    (t, every code's Eq register)), dead latched at ``kernel_latch_array``."""
 
     def window_at(c, t):
         t_col, eq = next(columns)
         assert t_col == t
         return column_eq(eq, c)
 
-    return _scan(queries.to(streams.device), streams.shape[-1], window_at, q_len=q_len,
-                 s_len=s_len, k=k, chk=kernel_latch_array(q_len, s_len, k))
+    return _scan(queries, S, window_at, q_len=q_len, s_len=s_len, k=k,
+                 chk=kernel_latch_array(q_len, s_len, k))
 
 
-def banded_ref(init_lo, init_hi, inj, queries, *, q_len: int, s_len: int, k: int):
-    """Plain torch version of the Peq-carry kernel (``banded_xla``).
-    init_lo/init_hi (5, S) int32, inj (5, W, S) int32, queries (Q, m) ->
-    (Q, S) int32. The five Peq planes shift right one bit per column and take
-    column t's injection bit at band_down while t < q_len - k."""
+def windowed_stream_ref(streams, queries, *, q_len: int, s_len: int, k: int, dual: bool = False):
+    """The stream kernels' schedule end to end: every column's register from
+    ``windowed_stream_columns`` and dead latched at ``kernel_latch_array``;
+    equal to ``banded_stream_ref`` / ``banded_stream_dual_ref``."""
+    columns = windowed_stream_columns(streams, q_len=q_len, s_len=s_len, k=k, dual=dual)
+    return _windowed_scan(columns, queries.to(streams.device), streams.shape[-1], q_len=q_len,
+                          s_len=s_len, k=k)
+
+
+def peq_columns(init_lo, init_hi, inj, *, q_len: int, s_len: int, k: int):
+    """The Peq-carry kernel's five planes column by column, as the reference
+    carries them: init_lo/init_hi (5, S) int32, inj (5, W, S) int32 -> yields
+    (t, (5, S) int64). The planes shift right one bit per column and take
+    column t's injection bit (word min(t // 32, W - 1)) at band_down while
+    t < q_len - k."""
     _, band_down, _ = geometry(q_len, s_len, k)
     W = inj.shape[1]
-    peq = words64(init_lo, init_hi)  # (5, S)
+    peq = words64(init_lo, init_hi)
     injw = inj.long() & MASK32
+    for t in range(q_len):
+        yield t, peq
+        peq = shr(peq, 1)
+        if t < q_len - k:
+            w, b = min(t // WORD_BITS, W - 1), t % WORD_BITS
+            peq = peq | (((injw[:, w] >> b) & 1) << band_down)
+
+
+def windowed_peq_columns(init_lo, init_hi, inj, *, q_len: int, s_len: int, k: int):
+    """The Peq-carry kernel's columns in its schedule (``PeqSource`` in
+    csrc/banded.cu): the planes as two streams, A the initial window (the
+    words init_lo, init_hi, zero past them) and B the injection bits, bit u
+    at position band_down + 1 + u. At the top of each 32-column batch (the
+    window w = t >> 5) B's words w, w + 1 (and w + 2 where band_down >= 32)
+    are built, word j from injection words j - 1, j (j - 2 .. j where wide;
+    word i is inj's min(i, W - 1), none before 0) by one funnel shift, bits
+    from q_len - k on zeroed; the columns t < 64 also fold A's whole window.
+    Each column's register is (A's window) | (B's window masked to the
+    band): the reference's plane, bit for bit. Yields (t, every code's Eq
+    register at t, (5, S) int64)."""
+    _, band_down, _ = geometry(q_len, s_len, k)
+    wide = band_down >= 32
+    injw = inj.long() & MASK32
+    W = injw.shape[1]
+    zero = torch.zeros_like(injw[:, 0])
+    n_inj = q_len - k
+    sh = (63 if wide else 31) - band_down
+
+    def inj_word(i):
+        return zero if i < 0 else injw[:, min(i, W - 1)]
+
+    def b_word(j):
+        i = j - (2 if wide else 1)
+        keep = min(max(n_inj + band_down + 1 - WORD_BITS * j, 0), WORD_BITS)
+        return shr(inj_word(i) | (inj_word(i + 1) << 32), sh) & ((1 << keep) - 1)
+
+    init = [init_lo.long() & MASK32, init_hi.long() & MASK32]
+    mask = const64((1 << (band_down + 1)) - 1)
+    head_end = min(2 * WORD_BITS, q_len)
+    for t0 in range(0, q_len, WORD_BITS):
+        w = t0 >> 5
+        b_slot = [b_word(w + i) for i in range(3 if wide else 2)]
+        a_slot = [init[w + i] if w + i < 2 else zero for i in range(3)] if t0 < head_end else None
+        for t in range(t0, min(t0 + WORD_BITS, q_len)):
+            eq = _fold(b_slot, t & 31) & mask
+            yield t, eq | _fold(a_slot, t & 31) if t < head_end else eq
+
+
+def windowed_peq_ref(init_lo, init_hi, inj, queries, *, q_len: int, s_len: int, k: int):
+    """The Peq-carry kernel's schedule end to end: every column's register
+    from ``windowed_peq_columns`` (query codes outside 0..4 match nothing)
+    and dead latched at ``kernel_latch_array``; equal to ``banded_ref``."""
+    columns = windowed_peq_columns(init_lo, init_hi, inj, q_len=q_len, s_len=s_len, k=k)
+    return _windowed_scan(columns, queries.to(init_lo.device), init_lo.shape[-1], q_len=q_len,
+                          s_len=s_len, k=k)
+
+
+def banded_ref(init_lo, init_hi, inj, queries, *, q_len: int, s_len: int, k: int, live=None):
+    """Plain torch version of the Peq-carry kernel (``banded_xla``).
+    init_lo/init_hi (5, S) int32, inj (5, W, S) int32, queries (Q, m) ->
+    (Q, S) int32, each column's Eq the code's plane of ``peq_columns``.
+    ``live``: see ``_scan``."""
+    planes = peq_columns(init_lo, init_hi, inj, q_len=q_len, s_len=s_len, k=k)
 
     def window_at(c, t):
-        nonlocal peq
-        if t:  # column t - 1's shift and injection
-            peq = shr(peq, 1)
-            if t - 1 < q_len - k:
-                w, b = min((t - 1) // WORD_BITS, W - 1), (t - 1) % WORD_BITS
-                peq = peq | (((injw[:, w] >> b) & 1) << band_down)
+        t_col, peq = next(planes)
+        assert t_col == t
         return peq[c]
 
     return _scan(queries.to(init_lo.device), init_lo.shape[-1], window_at,
-                 q_len=q_len, s_len=s_len, k=k)
+                 q_len=q_len, s_len=s_len, k=k, live=live)
 
 
 def _check_words(x, shape_desc: str, ndim: int, name: str) -> None:
@@ -321,13 +390,6 @@ def check_stream_args(stream, queries, q_len: int, s_len: int, k: int, name: str
             "the band); use banded() for shorter subjects"
         )
     return _device_of(stream, name)
-
-
-def _upload_chk(q_len: int, s_len: int, k: int, device) -> torch.Tensor:
-    """The checkpoint flags as a (q_len,) uint8 device tensor, uploaded from
-    pinned memory without blocking the host."""
-    host = torch.from_numpy(chk_array(q_len, s_len, k).astype(np.uint8))
-    return host.pin_memory().to(device, non_blocking=True) if q_len else host.to(device)
 
 
 def launch(name: str, fn_name: str, out: torch.Tensor, args) -> None:
@@ -409,9 +471,8 @@ def banded(init_lo, init_hi, inj, queries, *, q_len: int, s_len: int, k: int):
         return out
     tensors = [x.contiguous() for x in (init_lo, init_hi, inj)]
     q = queries.to(device=dev, dtype=torch.uint8).contiguous()
-    chk = _upload_chk(q_len, s_len, k, dev)
-    args = (*(x.data_ptr() for x in tensors), q.data_ptr(), chk.data_ptr(), out.data_ptr(),
-            Q, q_len, W, S, k, h, band_down, max_err, last_checkpoint(q_len, s_len, k))
+    args = (*(x.data_ptr() for x in tensors), q.data_ptr(), out.data_ptr(), Q, q_len, W, S,
+            k, h, band_down, max_err, last_checkpoint(q_len, s_len, k))
     launch("banded", "bgsa_banded_peq", out, args)
     LAUNCHES["banded"] += 1
     return out

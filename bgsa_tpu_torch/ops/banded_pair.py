@@ -28,13 +28,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .banded import (_scan, _upload_chk, banded_stream_ref, check_stream_args, geometry,
+from .banded import (_scan, banded_stream_ref, check_stream_args, chk_array, geometry,
                      last_checkpoint, launch, stream_window_at)
 
 PROBE_MODES = ("full", "static_c", "noload")
 
 # Kernel launches per wrapper (CUDA tensors only).
 LAUNCHES = {"banded_stream_pair": 0, **{f"banded_probe_{mode}": 0 for mode in PROBE_MODES}}
+
+
+def _upload_chk(q_len: int, s_len: int, k: int, device) -> torch.Tensor:
+    """The checkpoint flags as a (q_len,) uint8 device tensor, uploaded from
+    pinned memory without blocking the host."""
+    host = torch.from_numpy(chk_array(q_len, s_len, k).astype(np.uint8))
+    return host.pin_memory().to(device, non_blocking=True) if q_len else host.to(device)
 
 
 def pair_threads(dead: torch.Tensor) -> torch.Tensor:

@@ -151,7 +151,7 @@ _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "bgsa_myers_semiglobal": [_ptr] * 4 + [_i32] * 8 + [_ptr],
     "bgsa_banded_stream": [_ptr] * 3 + [_i32] * 10 + [_ptr],
-    "bgsa_banded_peq": [_ptr] * 6 + [_i32] * 9 + [_ptr],
+    "bgsa_banded_peq": [_ptr] * 5 + [_i32] * 9 + [_ptr],
     "bgsa_banded_packed": [_ptr] * 3 + [_i32] * 9 + [_ptr],
     "bgsa_myers_global": [_ptr] * 4 + [_i32] * 7 + [_ptr],
     "bgsa_myers_global_reg_words": [],

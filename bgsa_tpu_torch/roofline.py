@@ -210,8 +210,10 @@ SASS_SPECS = {
     "banded_stream": SassSpec("banded_stream_kernelILb0ELb{wide}E", "LDS.U8", 1, every=False),
     "banded_stream_dual": SassSpec("banded_stream_kernelILb1ELb{wide}E", "LDS.U8", 1,
                                    every=False),
-    # the query code and the checkpoint flag: two byte loads a column
-    "banded": SassSpec("banded_peq_kernel", _CODE, 2, every=False),
+    # the Peq-carry kernel is the dual kernel's body on its own slots (the
+    # initial window, the injection stream built at each batch's top): the
+    # query code from the staged row, one a column
+    "banded": SassSpec("banded_peq_kernelILb{wide}E", "LDS.U8", 1, every=False),
     # the query code from the row staged in shared memory
     "banded_stream_packed": SassSpec("banded_packed_kernelILi{n_sub}E", "LDS.U8", 1, every=False),
     "int_peak": SassSpec("int_peak_kernelILi{chains}E", None),

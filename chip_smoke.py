@@ -40,17 +40,23 @@ Phases; any failure exits non-zero, before the result line:
    band_down == 63, the dual kernel with 2k >= 32, the Peq-carry corner, a
    single-checkpoint query, and the stream kernels' window edges: q_len 32,
    64 and 96, band_down 31 and 32, the dual head ending inside a window, on
-   its first column and at q_len), each on all-garbage, all-near and
+   its first column and at q_len; the Peq-carry route's longest query, 63
+   vs 31 bp, and band_down 40), each on all-garbage, all-near and
    read-filter mix inputs at ragged subject counts; the device packers
-   against the host ``pack.pack_banded_host``;
+   against the host ``pack.pack_banded_host``; and the Peq-carry kernel on
+   random initial windows and injection words (``PEQ_WORDS``), with one
+   injection word (the word index clamped) and with one past what q_len - k
+   needs;
 7. banded kernel and plain times by CUDA events at the JAX bench's banded
    line (Q=8, S=65,280, 150 bp, k=8, filter mix) and at one production
    bucket (Q=20, S=190,080), each of the four kernels on the same data,
    and each kernel's device time (a CUDA graph of 20 launches, replayed:
    the kernels line's ``device_ms``; its ``ms`` stays the CUDA-event time);
-   at both shapes also the stream and dual kernels at their routes' own
-   geometries (``ROUTE_GEOMETRIES``), held to their plain versions and
-   timed;
+   at both shapes also the stream, dual and Peq-carry kernels at their
+   routes' own geometries (``ROUTE_GEOMETRIES``), held to their plain
+   versions and timed; then the Peq-carry kernel at one bucket of its route
+   (``PEQ_BUCKET``: Q=20, 55 bp queries against 1,367,296 x 20 bp
+   subjects, k=40), held to its plain version, timed and bound;
 8. the banded filter at production size through ``bgsa_tpu_torch.cli``:
    ``-k 8`` with 20 x 150 bp queries against 1,000,000 x 150 bp filter-mix
    subjects (the packed kernel), ``-k 16`` on a 100,000-subject slice (the
@@ -811,7 +817,9 @@ BANDED_GRID = [  # (q_len, s_len, k): every route and edge
     (64, 60, 12),    # dual, narrow, two windows
     (96, 95, 16),    # dual, the head ends on window 1's first column
     (50, 20, 40),    # Peq-carry
-    (55, 20, 40),    # Peq-carry
+    (55, 20, 40),    # Peq-carry (the -k 40 CLI run's)
+    (63, 31, 32),    # Peq-carry, the route's longest query, band_down 32
+    (40, 10, 35),    # Peq-carry, band_down 40
 ]
 BANDED_KINDS = ("garbage", "near", "mix")
 RAGGED_S = (1, 129, 1000)
@@ -821,11 +829,21 @@ BANDED_TIMED = (("bench line (bench.py:278-284)", 8, 65280),
                 ("one production bucket", 20, 190080))
 # device time: launches a CUDA graph, replays timed
 GRAPH_LAUNCHES, GRAPH_REPLAYS = 20, 5
-# the stream and dual kernels' own geometries (q_len, s_len, k), timed at
-# both BANDED_TIMED shapes: stream at band_down 32 and 63, dual at 148 bp
-# (the 148 bp CLI run's) and 95 bp subjects (2k >= 32)
+# the stream, dual and Peq-carry kernels' own geometries (q_len, s_len, k),
+# timed at both BANDED_TIMED shapes: stream at band_down 32 and 63, dual at
+# 148 bp (the 148 bp CLI run's) and 95 bp subjects (2k >= 32), Peq-carry at
+# the -k 40 CLI run's 55 vs 20 bp and the route's longest query, 63 vs 31 bp
 ROUTE_GEOMETRIES = {"banded_stream": [(150, 150, 16), (150, 181, 16)],
-                    "banded_stream_dual": [(150, 148, 8), (100, 95, 20)]}
+                    "banded_stream_dual": [(150, 148, 8), (100, 95, 20)],
+                    "banded": [(55, 20, 40), (63, 31, 32)]}
+# one bucket of the Peq-carry route (Q, q_len, s_len, k): 55 bp queries
+# against as many 20 bp subjects as the reader cuts from one BUCKET_SIZE
+# bucket (1,367,296)
+PEQ_BUCKET = (20, 55, 20, 40)
+# the Peq-carry kernel on random initial windows and injection words, at
+# each (q_len, s_len, k) with one injection word (where q_len - k needs
+# more, the word index clamped at W - 1) and with one more than it needs
+PEQ_WORDS = [(55, 20, 40), (63, 31, 32), (40, 10, 35), (150, 150, 8)]
 # production runs: subjects of the -k 8 run, of the -k 16 and dual slices,
 # and of the Peq-carry run
 BANDED_SUBJECTS, BANDED_SLICE, PEQ_SUBJECTS = 1_000_000, 100_000, 10_000
@@ -928,6 +946,17 @@ def phase_banded_kernels(rng):
         print(f"  q={m:3d} s={n:3d} k={k:2d}: route {route}, also {', '.join(also) or '-'}; "
               f"share over budget: {', '.join(line)}; max |diff| 0")
     print("  device pack_banded equals pack_banded_host on every geometry")
+    for m, n, k in PEQ_WORDS:  # random bits above band_down and past q_len - k
+        for W in (1, max(1, -(-(m - k) // 32)) + 1):
+            lo, hi, inj = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=shape,
+                                                         dtype=np.int64).astype(np.int32)).cuda()
+                           for shape in ((5, 1000), (5, 1000), (5, W, 1000)))
+            qt = torch.from_numpy(random_codes(rng, (3, m), n_rate=0.03)).cuda()
+            err, _ = banded_compare("banded", (lo, hi, inj), qt, m, n, k)
+            check(err == 0, f"banded kernel != plain on random words at {(m, n, k)} W={W}")
+            max_err["banded"] = max(max_err["banded"], err)
+    print(f"  banded (Peq-carry) on random initial windows and injection words at "
+          f"{PEQ_WORDS}, one word (the clamp) and one past q_len - k's: max |diff| 0")
     return max_err
 
 
@@ -1001,7 +1030,50 @@ def phase_banded_bench(rng, smi):
                       f"{banded_ops.geometry(gm, gn, gk)[1]}): kernel median {kernel_ms:.4f} ms "
                       f"over 20 runs; device time {device_ms:.4f} ms; over budget "
                       f"{float((got == 127).float().mean()):.3f}; max |diff| {err} ({smi})")
+    peq_route_bucket(rng, smi)
     return results
+
+
+def peq_route_bucket(rng, smi):
+    """The Peq-carry kernel at one bucket of its route (``PEQ_BUCKET``): held
+    to its plain version (timed once; it also counts the live lanes), timed,
+    and its bound printed."""
+    from bgsa_tpu_torch import roofline
+    from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
+    from bgsa_tpu_torch.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.ops import banded as banded_ops
+
+    Q, m, n, k = PEQ_BUCKET
+    S = bucket_subjects(n)
+    q, s = filter_mix_dataset(rng, Q, S, m)
+    qt = torch.from_numpy(q).cuda()
+    args = BandedEngine(k, device="cuda").kernel_args(
+        "banded", torch.from_numpy(s[:, :n].astype(np.int32)).cuda(), m)
+    del s
+    kernel, kw = KERNELS["banded"][0], dict(q_len=m, s_len=n, k=k)
+    before = banded_launches()["banded"]
+    got = kernel(*args, qt, **kw)
+    torch.cuda.synchronize()
+    check(banded_launches()["banded"] == before + 1, "banded did not launch its kernel")
+    live, plain = [], []
+    plain_ms = cuda_times_ms(lambda: plain.append(banded_ops.banded_ref(*args, qt, live=live,
+                                                                        **kw)), runs=1, warmup=0)
+    err = int((got.long() - plain[0].long()).abs().max())
+    check(err == 0, f"banded kernel != plain at the Peq-carry route's bucket {PEQ_BUCKET}, S={S}")
+    kernel_ms = statistics.median(cuda_times_ms(lambda: kernel(*args, qt, **kw), runs=20,
+                                                warmup=3))
+    device_ms = statistics.median(graph_times_ms(lambda: kernel(*args, qt, **kw)))
+    band_down = banded_ops.geometry(m, n, k)[1]
+    work = Work(main_library(), {"n_sub": 1, "wide": int(band_down >= 32)}, sum(live),
+                roofline.io_bytes(*args, qt, got), None)
+    bound_ms, bound_by, pipe, per_column, _ = kernel_bound("banded", device_ms, work, {}, None)
+    print(f"  Peq-carry route bucket: Q={Q} m={m} S={S} n={n} k={k} (band_down {band_down}), "
+          f"filter mix: kernel median {kernel_ms:.4f} ms over 20 runs; device time "
+          f"{device_ms:.4f} ms; plain torch {plain_ms[0]:.1f} ms (1 run); over budget "
+          f"{float((got == 127).float().mean()):.3f}; live (pair, column) pairs {sum(live)} of "
+          f"{Q * S * m}; bound {bound_ms:.4f} ms by {bound_by} ({pipe} pipe; SASS per column "
+          f"{per_column['alu']:.1f} ALU, {per_column['issue']:.1f} issued), "
+          f"{100 * bound_ms / device_ms:.1f} % of the device time; max |diff| {err} ({smi})")
 
 
 def graph_times_ms(fn) -> list:

@@ -8,8 +8,8 @@ parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists. The two trees run in turns, other / this / this /
 other, each turn a child process started in its tree, so each builds and
 imports its own ``bgsa_tpu_torch``. PART names what a turn runs
-(``bitpal``, ``cli``, ``banded``, ``generic``, ``stream``, ``myers_long``;
-default all six). A turn prints:
+(``bitpal``, ``cli``, ``banded``, ``generic``, ``stream``, ``myers_long``,
+``peq``; default all seven). A turn prints:
 
 - the registers, stack and shared memory of every ``banded_packed_kernel``
   instance in the tree's main kernel library, (``stream``) of every
@@ -56,7 +56,18 @@ default all six). A turn prints:
   ``bgsa-torch-align`` twice over 20 x 5,000 bp queries and 20,000 x
   5,000 bp subjects (``scripts/make_testdata.py``'s generator, seed 1:
   four buckets), each run's RunStats, kernel launches and result
-  checksum.
+  checksum;
+- ``peq``: the registers, stack and shared memory of every
+  ``banded_peq_kernel`` instance, then the Peq-carry kernel timed as
+  ``banded`` on the filter mix at the banded bench line (Q=8, S=65,280, 150
+  bp, k = 8), one 150 bp bucket (Q=20, S=190,080), one bucket of its route
+  (Q=20, 55 bp queries against 1,367,296 x 20 bp subjects, k = 40: the
+  subject count ``io.seqfile.DatabaseReader`` cuts from
+  ``pipeline.BUCKET_SIZE``) and the route's longest query (Q=20, 63 bp
+  against one bucket of 897,280 x 31 bp, k = 32), each with its bound from
+  the tree's own SASS per column (``roofline.column_instructions``) for the
+  live (pair, column) pairs the reference's checkpoints leave, at the
+  slowest pipe's rate.
 
 Exits with the first failing turn's code.
 """
@@ -88,6 +99,8 @@ if "bitpal" in parts:
     libs.append((build.load_scheme("bitpal", 2, -3, -5).path, "kernel"))
 if "myers_long" in parts:
     libs += [(build.load().path, "myers"), (build.load().path, "global31")]
+if "peq" in parts:
+    libs.append((build.load().path, "banded_peq_kernel"))
 for path, pattern in libs:
     usage = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-res-usage", path],
                            capture_output=True, text=True, check=True).stdout
@@ -210,6 +223,62 @@ for label, Q, S in chip_smoke.BANDED_TIMED * ("stream" in parts):
         print(f"  {name}, {label}: Q={Q} S={S} m={m} n={n} k={k}: kernel median {ms:.4f} ms over "
               f"20 runs; device time {dev:.4f} ms ({lo:.4f}-{hi:.4f}; a CUDA graph of 20 "
               f"launches, 5 replays); output checksum {checksum} ({smi})")
+def peq_live(args, qt, m, n, k):
+    # live (pair, column) pairs before each column, as the reference's
+    # checkpoints leave them, over the planes the reference carries (here,
+    # not banded_ref(live=): the turn runs in trees whose banded_ref takes
+    # no live)
+    _, band_down, _ = bo.geometry(m, n, k)
+    lo, hi, inj = args
+    W = inj.shape[1]
+    injw = inj.long() & bo.MASK32
+    peq = [bo.words64(lo, hi)]
+    def window_at(c, t):
+        if t:
+            peq[0] = bo.shr(peq[0], 1)
+            if t - 1 < m - k:
+                w, b = min((t - 1) // 32, W - 1), (t - 1) % 32
+                peq[0] = peq[0] | (((injw[:, w] >> b) & 1) << band_down)
+        return peq[0][c]
+    live = []
+    bo._scan(qt, lo.shape[-1], window_at, q_len=m, s_len=n, k=k, live=live)
+    return sum(live)
+if "peq" in parts:
+    from bgsa_tpu_torch import roofline
+    from bgsa_tpu_torch.pipeline import BUCKET_SIZE
+    functions = roofline.sass_functions(roofline.sass_text(build.load().path))
+    spec = roofline.SASS_SPECS["banded"]
+    for label, Q, m, n, k, S in (("bench line", 8, 150, 150, 8, 65280),
+                                 ("150 bp bucket", 20, 150, 150, 8, None),
+                                 ("route bucket", 20, 55, 20, 40, None),
+                                 ("31 bp bucket", 20, 63, 31, 32, None)):
+        S = S or BUCKET_SIZE // (n + 1) // 128 * 128
+        q, s = chip_smoke.banded_inputs(rng, Q, m, S, n, k, "mix")
+        codes, qt = torch.from_numpy(s).cuda(), torch.from_numpy(q).cuda()
+        del s
+        args = BandedEngine(k, device="cuda").kernel_args("banded", codes, m)
+        del codes
+        kw = dict(q_len=m, s_len=n, k=k)
+        run = lambda: bo.banded(*args, qt, **kw)
+        got = run()
+        checksum = int(got.long().sum())
+        ms = statistics.median(chip_smoke.cuda_times_ms(run, runs=20, warmup=3))
+        dev, lo, hi = device_ms(run)
+        wide = int(bo.geometry(m, n, k)[1] >= 32)
+        per = roofline.column_instructions(
+            roofline.find_function(functions, spec.function.format(wide=wide)), spec)
+        live = peq_live(args, qt, m, n, k)
+        ins, rate, pipe = roofline.instruction_bound(per, live, roofline.sm_count(),
+                                                     roofline.sm_clock_mhz())
+        bound_ms, by = roofline.bound(ins, roofline.io_bytes(*args, qt, got), rate)
+        print(f"  Peq-carry, {label}: Q={Q} S={S} m={m} n={n} k={k}: kernel median {ms:.4f} ms "
+              f"over 20 runs; device time {dev:.4f} ms ({lo:.4f}-{hi:.4f}; a CUDA graph of 20 "
+              f"launches, 5 replays); SASS per column {per['alu']:.2f} ALU, {per['issue']:.2f} "
+              f"issued; live (pair, column) pairs {live} of {Q * S * m}; bound {bound_ms:.4f} ms "
+              f"by {by} ({pipe}), {100 * bound_ms / dev:.1f} % of the device time; over budget "
+              f"{float((got == 127).float().mean()):.3f}; output checksum {checksum} ({smi})",
+              flush=True)
+        del args, got
 for label, Q, S, geometries in lines:
     for m, n, k in geometries:
         engine = BandedEngine(k, device="cuda")
@@ -228,7 +297,7 @@ for label, Q, S, geometries in lines:
 """
 
 
-PARTS = ("bitpal", "cli", "banded", "generic", "stream", "myers_long")
+PARTS = ("bitpal", "cli", "banded", "generic", "stream", "myers_long", "peq")
 
 
 def main(argv) -> int:

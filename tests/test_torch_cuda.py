@@ -129,7 +129,9 @@ BANDED_STREAM = [(150, 150, 16), (150, 181, 16), (150, 150, 1), (70, 70, 0), (32
                  (64, 72, 16), (96, 96, 16)]
 BANDED_DUAL = [(100, 95, 20), (150, 148, 8), (41, 30, 20), (100, 99, 31), (32, 28, 20),
                (64, 60, 12), (96, 95, 16)]
-BANDED_PEQ = [(50, 20, 40), (55, 20, 40), (150, 150, 8)]
+# the Peq-carry route's longest query (63 bp) and band_down 40, and the
+# bench line's geometry (live injections, past column 64)
+BANDED_PEQ = [(50, 20, 40), (55, 20, 40), (63, 31, 32), (40, 10, 35), (150, 150, 8)]
 KINDS = ["garbage", "near", "mix"]
 
 
@@ -196,28 +198,48 @@ def test_banded_dual_kernel_matches_plain(cuda, m, n, k, kind, S):
 @pytest.mark.parametrize("name,m,n,k", [("banded_stream", 150, 150, 16),
                                          ("banded_stream", 32, 47, 8),
                                          ("banded_stream_dual", 100, 95, 20),
-                                         ("banded_stream_dual", 150, 148, 8)])
+                                         ("banded_stream_dual", 150, 148, 8),
+                                         ("banded", 55, 20, 40), ("banded", 150, 150, 8)])
 def test_banded_stream_codes_outside_0_to_4_match_nothing(cuda, name, m, n, k):
-    # codes 5 and 9 in the queries score as code 4 against streams whose
-    # code-4 planes are zero
+    # codes 5 and 9 in the queries score as code 4 against streams (or the
+    # Peq-carry kernel's initial window and injection words) whose code-4
+    # planes are zero
     fn, ref = KERNELS[name]
     q, s = banded_inputs(m + n, m, n, k, "near", S=300)
     q[:, ::41], q[:, 20::53] = 5, 9
     args = BandedEngine(k, PipelineConfig(), cuda).kernel_args(
         name, torch.from_numpy(s).to(cuda), m)
-    zeroed = args[0].clone()
-    zeroed[..., 4, :, :] = 0
+    zeroed = [x.clone() for x in args]
+    for x in zeroed:  # characters on axis ndim - 3, axis 0 of a (5, S) window half
+        x.select(max(x.dim() - 3, 0), 4).zero_()
     kw = dict(q_len=m, s_len=n, k=k)
     got = fn(*args, torch.from_numpy(q).to(cuda), **kw)
-    want = ref(zeroed, torch.from_numpy(np.where(q >= 5, 4, q)).to(cuda), **kw)
+    want = ref(*zeroed, torch.from_numpy(np.where(q >= 5, 4, q)).to(cuda), **kw)
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("S", [1, 129, 1000])
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ["words", "short W"])
 @pytest.mark.parametrize("m,n,k", BANDED_PEQ)
 def test_banded_peq_kernel_matches_plain(cuda, m, n, k, kind, S):
-    kernel_vs_plain(cuda, "banded", m, n, k, kind, S)
+    if kind in KINDS:
+        kernel_vs_plain(cuda, "banded", m, n, k, kind, S)
+        return
+    # random initial windows and injection words (bits above band_down and
+    # past q_len - k); "short W": fewer injection words than q_len - k
+    # needs, so the word index clamps at W - 1
+    rng = np.random.default_rng(m + n + k + len(kind))
+    W = 1 if kind == "short W" else max(1, -(-(m - k) // 32)) + 1
+    lo, hi, inj = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=shape, dtype=np.int64)
+                                    .astype(np.int32)).to(cuda)
+                   for shape in ((5, S), (5, S), (5, W, S)))
+    q = torch.from_numpy(codes(rng, (3, m))).to(cuda)
+    kw = dict(q_len=m, s_len=n, k=k)
+    before = launches("banded")
+    got = bo.banded(lo, hi, inj, q, **kw)
+    torch.cuda.synchronize()
+    assert launches("banded") == before + 1
+    assert torch.equal(got, bo.banded_ref(lo, hi, inj, q, **kw))
 
 
 @pytest.mark.parametrize("m,n,k", [(150, 150, 8), (150, 181, 16), (150, 148, 8), (55, 20, 40)],
@@ -400,7 +422,7 @@ def test_banded_engine_on_two_shards_of_the_card(cuda, m, n, k):
     ("myers_semiglobal_wave", {}, None), ("myers_global_wave", {}, None),
     ("banded_stream", {"wide": 0}, None), ("banded_stream", {"wide": 1}, None),
     ("banded_stream_dual", {"wide": 0}, None), ("banded_stream_dual", {"wide": 1}, None),
-    ("banded", {}, None),
+    ("banded", {"wide": 0}, None), ("banded", {"wide": 1}, None),
     ("banded_stream_packed", {"n_sub": 3}, None), ("int_peak", {"chains": 16}, None),
     ("bitpal_packed", {"bits": 31, "W": 17}, "bitpal_packed"),
     ("bitpal", {"bits": 32, "W": 5}, "bitpal"), ("bitpal_tiled", {"bits": 32}, "bitpal"),

@@ -279,8 +279,8 @@ def banded_kernel():
 
 def test_sass_banded_kernel_takes_the_shortest_path_with_code_checks_falling_through():
     # the per-column form's two byte loads a column (the query code and the
-    # checkpoint flag), as the Peq-carry kernel and the stream kernels before
-    # their window fold read them
+    # checkpoint flag), as the stream kernels and the Peq-carry kernel before
+    # their window fold read them (the stream pair kernel still reads them)
     name = "_ZN4anon20banded_stream_kernelILb0EEEv"
     ins = roofline.sass_functions(listing(name, banded_kernel()))[name]
     spec = roofline.SassSpec("banded_stream_kernelILb0E", "LDG.E.U8.CONSTANT", 2, every=False)
@@ -347,6 +347,59 @@ def test_sass_stream_kernel_counts_its_column_loops_not_the_window_load():
         text = f.read()
     assert "template <bool Dual, bool Wide>\n__global__" in text
     assert "const bool wide = band_down >= 32;" in text
+
+
+def peq_window_kernel():
+    """The Peq-carry kernel's batch loop as the window fold compiles it: at
+    the batch's top the injection words (4 loads a code), B's words (a
+    funnel shift and a mask each) and the initial window's slot (2 loads
+    a code), each stored into its slot; then the head's column loop (the
+    code from the staged row, both slots' words, four funnel shifts, the
+    mask and the OR; 11 instructions a trip here) and the B-only column
+    loop (7), each batch ending with the latch and the warp's vote."""
+    top = [("", f"LDG.E.CONSTANT R{20 + i}, desc[UR6][R8.64+{4 * i:#x}]") for i in range(20)]
+    top += [("", f"SHF.R.W.U32 R{40 + i}, R{20 + i}, R7, R{21 + i}") for i in range(10)]
+    top += [("", f"LOP3.LUT R{40 + i}, R{40 + i}, R6, RZ, 0xc0, !PT") for i in range(10)]
+    top += [("", f"STS.64 [R3+{0x400 * c:#x}], R{40 + 2 * c}") for c in range(5)]
+    top += [("", f"LDG.E.CONSTANT R{50 + i}, desc[UR6][R9.64+{4 * i:#x}]") for i in range(10)]
+    top += [("", f"STS.128 [R5+{0x800 * c:#x}], R{48 + 2 * c}") for c in range(5)]
+    vote = [("", "ISETP.GT.AND P4, PT, R2, UR8, PT"), ("", "VOTE.ALL P5, P4")]
+    body = [("", "S2R R0, SR_TID.X"), (*top[0], "batch")] + top[1:]
+    body += [("", "LDS.U8 R12, [R4+UR5]", "head"), ("", "LEA R13, R12, R3, 0xa"),
+             ("", "LDS.64 R14, [R13]"), ("", "LDS.128 R16, [R13+0x3000]"),
+             ("", "SHF.R.W.U32 R20, R14, R7, R15"), ("", "SHF.R.W.U32 R21, R16, R7, R17"),
+             ("", "SHF.R.W.U32 R22, R17, R7, R18"), ("", "LOP3.LUT R20, R20, R10, RZ, 0xc0, !PT"),
+             ("", "LOP3.LUT R20, R20, R21, RZ, 0xfc, !PT"), ("", "VIADD R4, R4, 0x1"),
+             ("@!P3", "BRA @head")]
+    body += [("", "LDS.U8 R12, [R4+UR5]", "col"), ("", "LEA R13, R12, R3, 0xa"),
+             ("", "LDS.64 R14, [R13]"), ("", "SHF.R.W.U32 R16, R14, R7, R15"),
+             ("", "LOP3.LUT R17, R16, R10, RZ, 0xfc, !PT"), ("", "VIADD R4, R4, 0x1"),
+             ("@!P2", "BRA @col")]
+    return body + vote + [("@!P5", "BRA @batch"), ("", "EXIT")]
+
+
+def test_sass_peq_kernel_counts_its_column_loops_not_the_batch_top():
+    # the Peq-carry kernel reads its query code from the staged row, one
+    # LDS.U8 a column (no checkpoint byte); the injection words, B's funnel
+    # shifts and masks and the initial window's loads lie at the batch's
+    # top, outside the column loops; the cheaper column loop (B alone) is
+    # the bound's
+    spec = roofline.SASS_SPECS["banded"]
+    assert (spec.anchor, spec.anchors, spec.every) == ("LDS.U8", 1, False)
+    name = "_ZN4anon17banded_peq_kernelILb0EEEvPKjS1_S1_PKhPiiiiiiiiii"
+    other = "_ZN4anon17banded_peq_kernelILb1EEEvPKjS1_S1_PKhPiiiiiiiiii"
+    functions = roofline.sass_functions(listing(name, peq_window_kernel())
+                                        + listing(other, peq_window_kernel()))
+    ins = roofline.find_function(functions, spec.function.format(wide=0))
+    assert ins is functions[name]
+    per = roofline.column_instructions(ins, spec)
+    # LDS.U8, LEA, LDS.64, SHF, LOP3, VIADD, BRA (ALU: LEA, SHF, LOP3)
+    assert per == {"issue": 7, "alu": 3, "fma": 0}
+    # the template argument is csrc/banded.cu's <Wide>
+    with open(os.path.join(REPO, "bgsa_tpu_torch", "csrc", "banded.cu")) as f:
+        text = f.read()
+    assert "template <bool Wide>\n__global__ void __launch_bounds__(kThreads, 1)\nbanded_peq_kernel(" \
+        in text
 
 
 def test_sass_nested_loop_counts_one_trip():
