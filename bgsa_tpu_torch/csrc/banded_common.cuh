@@ -52,9 +52,9 @@ __device__ __forceinline__ uint64_t stream_window(const uint32_t* __restrict__ p
   return (static_cast<uint64_t>(__funnelshift_r(w1, w2, b)) << 32) | __funnelshift_r(w0, w1, b);
 }
 
-// The window fold of the stream kernels (banded.cu; stream_window is the
-// per-column form it replaced, kept for the paired-query kernel and the
-// probes). Within the 32-column window w = t >> 5 every code's words w, w + 1
+// The window fold of the stream kernels (banded.cu and the paired-query
+// kernel of banded_pair.cu; stream_window is the per-column form it
+// replaced, kept for the probes). Within the 32-column window w = t >> 5 every code's words w, w + 1
 // (and w + 2 where the window's high half is needed) are fixed, so a thread
 // loads them once a window into its shared-memory slot, one StreamSlot per
 // code at slot[c * kThreads] (slot pointing at its own column of the block's

@@ -84,9 +84,9 @@ __device__ __forceinline__ uint64_t packed_window(const uint32_t* __restrict__ b
   return eq;
 }
 
-// The window fold (the shipping kernel's column; packed_window is the
-// per-column form it replaced, kept for the paired-query kernel and the
-// probes). Within the 32-column window w = min(t >> 5, W - 2) every code's
+// The window fold (the column of the shipping kernel and of the
+// paired-query kernel; packed_window is the per-column form it replaced,
+// kept for the probes). Within the 32-column window w = min(t >> 5, W - 2) every code's
 // and field's word pair is fixed, so a thread loads the 5 x n_sub pairs
 // once a window into its shared-memory slot, slot[(c * n_sub + j) *
 // kThreads] (slot pointing at its own column of the block's slots, so

@@ -21,21 +21,30 @@
 //
 // What bounds them: as banded_packed.cu, the packed band update's serial
 // chain of 64-bit integer operations (~16 per column for n_sub subjects;
-// the pair: two chains a thread), plus n_sub funnel windows per state and
-// column (two L2-resident 4-byte stream words each).
+// the pair: two chains a thread), plus the n_sub funnel windows folded per
+// state and column. The pair kernel loads the two stream words of every
+// code and field once per 32-column window (L2-resident), for both chains;
+// a probe column reads two stream words per field.
 //
-// Design of the pair kernel: one thread per (query pair, group of n_sub
-// subjects), blockIdx.y walks the pairs (rows 2p and 2p + 1). Each state
-// reads the subject words of its own query code, once a column
-// (packed_window). Everything else is the packed kernel's, from
-// banded_packed_common.cuh: the unscored head of min(k, m) columns, the
-// SWAR latches at 32-column batch boundaries up to the last checkpoint and
-// exactly at it, err = max(m, k) - matches and the threshold clamped at 0
-// (where the JAX kernel takes q_len - matches, wrong when q_len < k). A warp
-// leaves the column loop when every field of both states of every lane is
-// dead. The JAX launcher's rows_per_block and unroll have no counterpart.
-// Launches use the caller's stream, allocate nothing, and the C entry
-// points return cudaGetLastError().
+// Design of the pair kernel: banded_packed.cu's kernel with two packed
+// states a thread. One thread per (query pair, group of n_sub subjects),
+// blockIdx.y walks the pairs (rows 2p and 2p + 1), whose query rows are
+// staged once per pair in shared memory (2m bytes). The window fold
+// (banded_packed_common.cuh): once per 32-column window of the stream (w =
+// min(t >> 5, W - 2)) a thread loads the two words of each of the 5 codes
+// for every field into its shared-memory slot (load_window); both states
+// read it, each selecting its own code's pairs and funnel-shifting them by
+// t & 31 (fold_window). One slot set holds every code of the thread's
+// subjects, so one window load serves both queries. Everything else is the
+// packed kernel's: the unscored head of min(k, m) columns, the SWAR latches
+// at 32-column batch boundaries up to the last checkpoint and exactly at
+// it, err = max(m, k) - matches and the threshold clamped at 0 (where the
+// JAX kernel takes q_len - matches, wrong when q_len < k). A warp leaves the
+// column loop when every field of both states of every lane is dead. The
+// JAX launcher's rows_per_block and unroll have no counterpart. Launches
+// use the caller's stream, allocate nothing (the slots and the query rows
+// are dynamic shared memory), and the C entry points return
+// cudaGetLastError().
 
 #include "banded_packed_common.cuh"
 
@@ -43,36 +52,52 @@ namespace {
 
 using namespace bgsa_banded;
 
+// Dynamic shared memory of a pair launch: the slots, then the two query rows.
+inline size_t pair_smem_bytes(int n_sub, int m) {
+  return static_cast<size_t>(n_sub) * kSlotBytesPerField + 2 * static_cast<size_t>(m);
+}
+
 // streams: (n_sub, 5, W, S_sub) uint32; queries: (2 * pairs, m) uint8;
-// out: (2 * pairs, n_sub * S_sub) int32. NSUB > 0 fixes n_sub at compile time.
+// out: (2 * pairs, n_sub * S_sub) int32. NSUB > 0 fixes n_sub at compile
+// time. Launch bounds: at least one block per SM, as the packed kernel's,
+// so ptxas may take the registers the two chains and the window fold need.
 template <int NSUB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 banded_packed_pair_kernel(const uint32_t* __restrict__ streams,
                           const uint8_t* __restrict__ queries, int32_t* __restrict__ out,
                           int pairs, int m, int W, int S_sub, int n_sub_rt, int k, int h,
                           int band_down, int last_chk, PackedConsts pc) {
+  extern __shared__ uint2 smem[];
   const int n_sub = NSUB > 0 ? NSUB : n_sub_rt;
   const int pitch = band_down + 2;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = s < S_sub;
   const size_t plane = static_cast<size_t>(W) * S_sub;
   const uint32_t* const base = streams + (active ? s : S_sub - 1);
+  uint2* const slot = smem + threadIdx.x;
+  uint8_t* const qa = reinterpret_cast<uint8_t*>(smem + n_sub * kChars * kThreads);
+  const uint8_t* const qb = qa + m;
   const uint32_t wmask = (1u << (band_down + 1)) - 1u;  // band_down <= 30
   const int head_end = min(k, m);
   const int nb = max(0, (last_chk - head_end) / kBatchCols);
   for (int p = blockIdx.y; p < pairs; p += gridDim.y) {
-    const uint8_t* const qa = queries + static_cast<size_t>(2 * p) * m;
-    const uint8_t* const qb = qa + m;
+    __syncthreads();  // every warp is done with the previous pair's rows
+    for (int i = threadIdx.x; i < 2 * m; i += blockDim.x) {  // rows 2p and 2p + 1
+      qa[i] = queries[static_cast<size_t>(2 * p) * m + i];
+    }
+    __syncthreads();
     PackedState a, b;
     a.dead = b.dead = active ? 0ull : pc.tops;
+    int window = -1;
 
     auto column = [&](int t) {
-      const uint64_t eqa = packed_window<NSUB>(base, plane, S_sub, W, n_sub, pitch, wmask,
-                                               __ldg(qa + t), t);
-      const uint64_t eqb = packed_window<NSUB>(base, plane, S_sub, W, n_sub, pitch, wmask,
-                                               __ldg(qb + t), t);
-      packed_update(a, eqa, t >= k, pc);
-      packed_update(b, eqb, t >= k, pc);
+      const int w = min(t >> 5, W - 2);
+      if (w != window) {
+        load_window<NSUB>(slot, base, plane, S_sub, n_sub, w);
+        window = w;
+      }
+      packed_update(a, fold_window<NSUB>(slot, n_sub, pitch, wmask, qa[t], t), t >= k, pc);
+      packed_update(b, fold_window<NSUB>(slot, n_sub, pitch, wmask, qb[t], t), t >= k, pc);
     };
 
     for (int t = 0; t < head_end; ++t) column(t);  // unscored head
@@ -103,11 +128,20 @@ banded_packed_pair_kernel(const uint32_t* __restrict__ streams,
 }
 
 template <int NSUB>
-void launch(dim3 grid, cudaStream_t cs, const uint32_t* st, const uint8_t* qs, int32_t* o,
-            int pairs, int m, int W, int S_sub, int n_sub, int k, int h, int band_down,
-            int last_chk, const PackedConsts& pc) {
-  banded_packed_pair_kernel<NSUB><<<grid, kThreads, 0, cs>>>(st, qs, o, pairs, m, W, S_sub, n_sub,
-                                                             k, h, band_down, last_chk, pc);
+int launch(dim3 grid, cudaStream_t cs, const uint32_t* st, const uint8_t* qs, int32_t* o,
+           int pairs, int m, int W, int S_sub, int n_sub, int k, int h, int band_down,
+           int last_chk, const PackedConsts& pc) {
+  const size_t smem = pair_smem_bytes(n_sub, m);
+  if (smem > 48 * 1024) {  // past the default: opt in (fails past the card's limit)
+    const cudaError_t rc = cudaFuncSetAttribute(
+        banded_packed_pair_kernel<NSUB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  banded_packed_pair_kernel<NSUB><<<grid, kThreads, smem, cs>>>(st, qs, o, pairs, m, W, S_sub,
+                                                                n_sub, k, h, band_down, last_chk,
+                                                                pc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kProbeFull = 0, kProbeStaticC = 1, kProbeNoLoad = 2;
@@ -204,15 +238,14 @@ int bgsa_banded_packed_pair(const void* streams, const void* queries, void* out,
 #define BGSA_PAIR_LAUNCH(N) \
   launch<N>(grid, cs, st, qs, o, Q / 2, m, W, S_sub, n_sub, k, h, band_down, last_chk, pc)
   switch (n_sub) {
-    case 2: BGSA_PAIR_LAUNCH(2); break;
-    case 3: BGSA_PAIR_LAUNCH(3); break;
-    case 4: BGSA_PAIR_LAUNCH(4); break;
-    case 5: BGSA_PAIR_LAUNCH(5); break;
-    case 6: BGSA_PAIR_LAUNCH(6); break;
-    default: BGSA_PAIR_LAUNCH(0);
+    case 2: return BGSA_PAIR_LAUNCH(2);
+    case 3: return BGSA_PAIR_LAUNCH(3);
+    case 4: return BGSA_PAIR_LAUNCH(4);
+    case 5: return BGSA_PAIR_LAUNCH(5);
+    case 6: return BGSA_PAIR_LAUNCH(6);
+    default: return BGSA_PAIR_LAUNCH(0);
   }
 #undef BGSA_PAIR_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
 // bgsa_banded_packed's arguments without last_chk, and the mode: 0 full,

@@ -255,17 +255,19 @@ def kernel_latch_array(q_len: int, s_len: int, k: int) -> np.ndarray:
                      for t in range(q_len)], np.int32)
 
 
-def _windowed_scan(columns, queries, S: int, *, q_len: int, s_len: int, k: int):
+def _windowed_scan(columns, queries, S: int, *, q_len: int, s_len: int, k: int, live=None,
+                   threads=None):
     """``_scan`` over a windowed schedule's registers (``columns`` yields
-    (t, every code's Eq register)), dead latched at ``kernel_latch_array``."""
+    (t, every code's Eq register)), dead latched at ``kernel_latch_array``.
+    ``live``, ``threads``: see ``_scan``."""
 
     def window_at(c, t):
         t_col, eq = next(columns)
         assert t_col == t
         return column_eq(eq, c)
 
-    return _scan(queries, S, window_at, q_len=q_len, s_len=s_len, k=k,
-                 chk=kernel_latch_array(q_len, s_len, k))
+    return _scan(queries, S, window_at, q_len=q_len, s_len=s_len, k=k, live=live,
+                 threads=threads, chk=kernel_latch_array(q_len, s_len, k))
 
 
 def windowed_stream_ref(streams, queries, *, q_len: int, s_len: int, k: int, dual: bool = False):

@@ -26,6 +26,7 @@ fields (no field can be over budget while it is <= 0).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..banded_ref import MAX_ERROR
@@ -151,23 +152,43 @@ def windowed_columns(st, *, q_len: int, s_len: int, k: int):
         yield t, fold_window(slots, t & 31, pitch, wmask)
 
 
-def packed_scan(streams, queries, *, q_len: int, s_len: int, k: int, eq_at, latch: bool = True):
+def packed_latch_array(q_len: int, s_len: int, k: int) -> np.ndarray:
+    """(q_len,) int32, 1 at column t when the packed kernels latch after it:
+    the ends of the 32-column batches from min(k, q_len) up to the last
+    checkpoint, and the last checkpoint (err is nondecreasing, so the
+    outcome is the reference's)."""
+    head_end = min(k, q_len)
+    last = last_checkpoint(q_len, s_len, k)
+    ends = {head_end + (i + 1) * WORD_BITS for i in range(max(0, (last - head_end) // WORD_BITS))}
+    return np.array([t + 1 in ends or t + 1 == last for t in range(q_len)], np.int32)
+
+
+def packed_scan(streams, queries, *, q_len: int, s_len: int, k: int, eq_at, chk=None, live=None,
+                threads=None):
     """The packed recurrence over columns 0..q_len-1 -> (Q, n_sub * S_sub)
     int32 in original subject order. ``eq_at(st, t, q)`` gives column t's
     (Q, S_sub) Eq registers (st: the streams as int64 words, q: the (Q,
-    q_len) codes); ``latch`` False runs every column with no over-budget
-    latch (the probes)."""
+    q_len) codes). ``chk``: (q_len,), 1 after the columns where a field
+    over budget is latched (default: the last checkpoint alone, the
+    reference's outcome; all zeros: none, the probes). ``live``, a list,
+    receives before each column the count of registers (query, S_sub) with
+    a field not yet latched, or with ``threads`` (that (Q, S_sub) all-dead
+    mask -> a kernel's threads' masks) the count of such threads."""
     n_sub = check_streams(streams, q_len, s_len, k)
     h, band_down, _, pitch, _, band, xsm, ones, tops = consts(q_len, s_len, k)
     ones_u = ones
     band, xsm, ones, tops = map(const64, (band, xsm, ones, tops))
-    last_chk = last_checkpoint(q_len, s_len, k)
+    if chk is None:
+        chk = np.arange(q_len) + 1 == last_checkpoint(q_len, s_len, k)
     st = streams.long() & MASK32  # (n_sub, 5, W, S_sub)
     S_sub = st.shape[3]
     q = queries.to(streams.device).long()
     vp = vn = mt = torch.zeros((q.shape[0], S_sub), dtype=torch.int64, device=streams.device)
     dead = torch.zeros_like(vp)
     for t in range(q_len):
+        if live is not None:
+            d = dead == tops if threads is None else threads(dead == tops)
+            live.append(int(d.numel() - d.sum()))
         x = eq_at(st, t, q) | vn
         d0 = (((x & vp) + vp) ^ vp) | x
         hn = d0 & vp
@@ -177,8 +198,8 @@ def packed_scan(streams, queries, *, q_len: int, s_len: int, k: int, eq_at, latc
         vp = (~(hp | xs) | hn) & band
         if t >= k:
             mt = mt + (d0 & ones)
-        if latch and t + 1 == last_chk:  # matches < thr <=> err > max_err, per field
-            thr = const64(max(last_chk - k - h - 1, 0) * ones_u)  # thr in every field
+        if chk[t]:  # matches < thr <=> err > max_err, per field
+            thr = const64(max(t + 1 - k - h - 1, 0) * ones_u)  # thr in every field
             dead = dead | (~((mt | tops) - thr) & tops)
     outs = []
     for j in range(n_sub):

@@ -12,7 +12,12 @@ with the latch threshold clamped at 0, as the port's packed kernel does.
 ``banded_packed_pair_ref`` is the plain torch version, run for a CPU tensor;
 a CUDA tensor launches ``csrc/banded_packed_pair.cu`` (a failed build or
 launch raises), counted in ``LAUNCHES``. Q must be even. The JAX launcher's
-``rows_per_block`` and ``unroll`` have no counterpart.
+``rows_per_block`` and ``unroll`` have no counterpart. The kernel runs the
+packed kernel's schedule with two states a thread (the window fold: every
+code's and field's word pair loaded once per 32-column window into a slot
+both states read; the query rows staged; the latches at the batch ends
+and the last checkpoint); ``windowed_packed_pair_ref`` is that schedule in
+plain torch, used by the tests only.
 
 ``banded_packed_probe`` prices the packed column as ``ops.banded_pair``'s
 probes price the stream column: mode ``full`` (the per-column window fold),
@@ -24,11 +29,13 @@ has this probe; ``scripts/exp_banded_packed_pair.py probe`` drives it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .banded import _check_queries, _device_of, geometry, launch
+from .banded import MASK32, _check_queries, _device_of, geometry, launch
 from .banded_packed import (banded_stream_packed_ref, check_streams, column_eq, launch_packed,
-                            packed_scan, packed_window)
+                            packed_latch_array, packed_scan, packed_window, windowed_columns)
+from .banded_pair import pair_threads
 
 PROBE_MODES = ("full", "static_c", "noload")
 
@@ -64,6 +71,24 @@ def banded_packed_pair_ref(streams, queries, *, q_len: int, s_len: int, k: int):
     return banded_stream_packed_ref(streams, queries, q_len=q_len, s_len=s_len, k=k)
 
 
+def windowed_packed_pair_ref(streams, queries, *, q_len: int, s_len: int, k: int, live=None):
+    """The packed pair kernel's schedule end to end: both queries of a pair
+    fold every column from one window slot (``windowed_columns``), fields
+    over budget are latched at ``packed_latch_array``, and a thread runs
+    until all 2 n_sub of its fields are. ``live`` receives, before each
+    column, the threads still running under these latches."""
+    _check_even(queries)
+    columns = windowed_columns(streams.long() & MASK32, q_len=q_len, s_len=s_len, k=k)
+
+    def eq_at(st, t, q):
+        t_col, eq = next(columns)
+        assert t_col == t
+        return column_eq(eq, q[:, t])
+
+    return packed_scan(streams, queries, q_len=q_len, s_len=s_len, k=k, eq_at=eq_at,
+                       chk=packed_latch_array(q_len, s_len, k), live=live, threads=pair_threads)
+
+
 def banded_packed_pair(streams, queries, *, q_len: int, s_len: int, k: int):
     """(n_sub, 5, W, S_sub) int32 chunked streams (``pack_packed_streams``)
     x (Q, q_len) codes, Q even -> (Q, n_sub * S_sub) int32 error counts (127
@@ -97,7 +122,8 @@ def banded_packed_probe_ref(streams, queries, *, q_len: int, s_len: int, k: int,
         fields = packed_window(st, 0 if mode == "noload" else t, pitch, wmask)
         return fields[0].expand(q.shape[0], -1)
 
-    return packed_scan(streams, queries, q_len=q_len, s_len=s_len, k=k, eq_at=eq_at, latch=False)
+    return packed_scan(streams, queries, q_len=q_len, s_len=s_len, k=k, eq_at=eq_at,
+                       chk=np.zeros(q_len, np.int32))  # no latch
 
 
 def banded_packed_probe(streams, queries, *, q_len: int, s_len: int, k: int, mode: str):

@@ -6,13 +6,18 @@ one serial dependency chain a column:
 
 * ``banded_stream_pair``: two queries' band states per thread
   (``_stream_kernel_pair``), equal to ``ops.banded.banded_stream`` bit for
-  bit. Q must be even.
+  bit. Q must be even. The kernel runs the stream kernel's schedule (the
+  window fold: every code's stream words loaded once per 32 columns into a
+  slot both chains read; the query rows staged; over budget latched at the
+  batch ends <= the last checkpoint and at the last checkpoint, no
+  checkpoint byte read); ``windowed_stream_pair_ref`` is that schedule in
+  plain torch, used by the tests only.
 * ``banded_probe``: the cost probe (``_probe_kernel``) in mode ``full`` (the
-  stream column), ``static_c`` (plane 0 every column: no query-code read)
-  or ``noload`` (the subject's stream[0, 0] word, read once, as every
-  column's window). Every column runs and no checkpoint latches, so a score
-  is the band's minimum, never 127; outside ``full`` the scores are the
-  probe's own, as the JAX body defines them.
+  stream column in its per-column form), ``static_c`` (plane 0 every
+  column: no query-code read) or ``noload`` (the subject's stream[0, 0]
+  word, read once, as every column's window). Every column runs and no
+  checkpoint latches, so a score is the band's minimum, never 127; outside
+  ``full`` the scores are the probe's own, as the JAX body defines them.
 
 Both take ``ops.banded.banded_stream``'s stream (``pack.pack_banded_stream``)
 and its geometry rule (s_len >= q_len). Each ``*_ref`` is the plain torch
@@ -28,20 +33,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .banded import (_scan, banded_stream_ref, check_stream_args, chk_array, geometry,
-                     last_checkpoint, launch, stream_window_at)
+from .banded import (_scan, _windowed_scan, banded_stream_ref, check_stream_args, geometry,
+                     last_checkpoint, launch, stream_window_at, windowed_stream_columns)
 
 PROBE_MODES = ("full", "static_c", "noload")
 
 # Kernel launches per wrapper (CUDA tensors only).
 LAUNCHES = {"banded_stream_pair": 0, **{f"banded_probe_{mode}": 0 for mode in PROBE_MODES}}
-
-
-def _upload_chk(q_len: int, s_len: int, k: int, device) -> torch.Tensor:
-    """The checkpoint flags as a (q_len,) uint8 device tensor, uploaded from
-    pinned memory without blocking the host."""
-    host = torch.from_numpy(chk_array(q_len, s_len, k).astype(np.uint8))
-    return host.pin_memory().to(device, non_blocking=True) if q_len else host.to(device)
 
 
 def pair_threads(dead: torch.Tensor) -> torch.Tensor:
@@ -63,6 +61,18 @@ def banded_stream_pair_ref(stream, queries, *, q_len: int, s_len: int, k: int, l
     _check_even(queries)
     return banded_stream_ref(stream, queries, q_len=q_len, s_len=s_len, k=k, live=live,
                              threads=pair_threads)
+
+
+def windowed_stream_pair_ref(stream, queries, *, q_len: int, s_len: int, k: int, live=None):
+    """The pair kernel's schedule end to end: both queries of a pair fold
+    every column from one window slot (``windowed_stream_columns``), dead is
+    latched at ``kernel_latch_array``, and a thread runs until both its
+    pairs are over budget. ``live`` receives, before each column, the
+    threads still running under these latches."""
+    _check_even(queries)
+    columns = windowed_stream_columns(stream, q_len=q_len, s_len=s_len, k=k)
+    return _windowed_scan(columns, queries.to(stream.device), stream.shape[-1], q_len=q_len,
+                          s_len=s_len, k=k, live=live, threads=pair_threads)
 
 
 def banded_probe_ref(stream, queries, *, q_len: int, s_len: int, k: int, mode: str):
@@ -106,11 +116,10 @@ def banded_stream_pair(stream, queries, *, q_len: int, s_len: int, k: int):
     if device == "cpu":
         return banded_stream_pair_ref(stream, queries, q_len=q_len, s_len=s_len, k=k)
     h, band_down, max_err = geometry(q_len, s_len, k)
-    chk = _upload_chk(q_len, s_len, k, stream.device)
 
     def args(st, q, out, W, S):
-        return (st.data_ptr(), q.data_ptr(), chk.data_ptr(), out.data_ptr(), q.shape[0], q_len, W,
-                S, k, h, band_down, max_err, last_checkpoint(q_len, s_len, k))
+        return (st.data_ptr(), q.data_ptr(), out.data_ptr(), q.shape[0], q_len, W, S, k, h,
+                band_down, max_err, last_checkpoint(q_len, s_len, k))
 
     return _launch("banded_stream_pair", "bgsa_banded_stream_pair", stream, queries, q_len, s_len,
                    k, args)

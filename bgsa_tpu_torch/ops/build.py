@@ -157,7 +157,7 @@ _SIGNATURES = {
     "bgsa_myers_global_reg_words": [],
     "bgsa_int_peak": [_ptr] * 2 + [_i32] * 3 + [_ptr],
     "bgsa_int_peak_supports": [_i32],
-    "bgsa_banded_stream_pair": [_ptr] * 4 + [_i32] * 9 + [_ptr],
+    "bgsa_banded_stream_pair": [_ptr] * 3 + [_i32] * 9 + [_ptr],
     "bgsa_banded_probe": [_ptr] * 3 + [_i32] * 8 + [_ptr],
     "bgsa_banded_packed_pair": [_ptr] * 3 + [_i32] * 9 + [_ptr],
     "bgsa_banded_packed_probe": [_ptr] * 3 + [_i32] * 9 + [_ptr],

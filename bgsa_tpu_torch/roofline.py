@@ -217,14 +217,18 @@ SASS_SPECS = {
     # the query code from the row staged in shared memory
     "banded_stream_packed": SassSpec("banded_packed_kernelILi{n_sub}E", "LDS.U8", 1, every=False),
     "int_peak": SassSpec("int_peak_kernelILi{chains}E", None),
-    # two query codes and the checkpoint flag a pair column
-    "banded_stream_pair": SassSpec("banded_stream_pair_kernel", _CODE, 3, every=False),
+    # the pairs: both query codes from the rows staged in shared memory, two
+    # a pair-column (the stream pair: the stream kernel's loops; the packed
+    # pair: the packed kernel's)
+    "banded_stream_pair": SassSpec("banded_stream_pair_kernelILb{wide}E", "LDS.U8", 2,
+                                   every=False),
     # the probes: no early exit; static_c and noload load no query code, and
     # their column loop is pinned at PEAK_UNROLL columns a trip
     "banded_probe_full": SassSpec("banded_probe_kernelILi0E", _CODE, 1, every=False),
     "banded_probe_static_c": SassSpec("banded_probe_kernelILi1E", None),
     "banded_probe_noload": SassSpec("banded_probe_kernelILi2E", None),
-    "banded_packed_pair": SassSpec("banded_packed_pair_kernelILi{n_sub}E", _CODE, 2, every=False),
+    "banded_packed_pair": SassSpec("banded_packed_pair_kernelILi{n_sub}E", "LDS.U8", 2,
+                                   every=False),
 }
 
 

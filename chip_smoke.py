@@ -131,9 +131,11 @@ Phases; any failure exits non-zero, before the result line:
     versions on the card, and each pair against the shipping kernel it
     pairs (tolerance 0: integer scores), over a geometry grid (several
     batches and a tail, the stream band in the high word and at band_down
-    == 63, packed n_sub 2, 3, 5 and 6, a single-checkpoint query, a packed
-    q_len < k corner) x garbage, near and mix inputs x ragged subject
-    counts;
+    == 63, packed n_sub 2 to 7, a single-checkpoint query, a packed q_len <
+    k corner, and the window edges: q_len 32, 64 and 96, band_down 31, 36
+    and 40) x garbage, near and mix inputs x ragged subject counts; then
+    both pairs on random words with no packer's room (a stream window's
+    word past W, the packed window clamped at W - 2);
 18. the two experiments (``bgsa_tpu_torch.scripts.exp_banded_pair`` and
     ``exp_banded_packed_pair``, ``mix`` and ``garbage``, with the packed
     probes) at their own shapes: each gate, then every variant's rate from
@@ -1894,6 +1896,9 @@ PAIR_STREAM_GRID = [  # (q_len, s_len, k) of the stream pair and the probes
     (150, 150, 16),   # the band in the high word (band_down >= 32)
     (150, 181, 16),   # band_down == 63
     (40, 44, 4),      # a short query with a single checkpoint
+    (32, 47, 8),      # the window edges: one batch, band_down 31 (the narrow instance's last)
+    (64, 72, 16),     # two batches, band_down 40
+    (96, 100, 16),    # three batches, band_down 36
 ]
 PAIR_PACKED_GRID = [  # (q_len, s_len, k) of the packed pair
     (150, 158, 8),    # n_sub = 2
@@ -1901,7 +1906,14 @@ PAIR_PACKED_GRID = [  # (q_len, s_len, k) of the packed pair
     (72, 72, 5),      # n_sub = 5
     (100, 100, 4),    # n_sub = 6
     (3, 5, 4),        # q_len < k (n_sub = 5): err starts at k
+    (150, 151, 3),    # n_sub = 7, the generic instance
+    (64, 66, 5),      # q_len 64 (n_sub = 4)
+    (96, 96, 8),      # q_len 96 (n_sub = 3)
 ]
+# (q_len, s_len, k, W) on random words: the stream pair's windows past the
+# stream's last word (W one and two words past the last window's first),
+# the packed pair's window clamped at W - 2
+PAIR_RAW_WORDS = [(32, 47, 8, 1), (96, 100, 16, 4), (150, 150, 8, 3), (100, 100, 4, 4)]
 PAIR_QUERIES = 4
 # the packed column's cost probes (no TPU twin: not in the kernels line)
 PACKED_PROBES = ("banded_packed_probe_full", "banded_packed_probe_static_c",
@@ -1998,6 +2010,22 @@ def phase_pair_kernels(rng):
                         over.append(f"{kind} {float((want == 127).float().mean()):.2f}")
             print(f"  q={m:3d} s={n:3d} k={k:2d}: {', '.join(names)} vs plain, pairs equal to "
                   f"{shipping}; share over budget: {', '.join(over)}; max |diff| 0")
+    for m, n, k, W in PAIR_RAW_WORDS:
+        kw = dict(q_len=m, s_len=n, k=k)
+        n_sub = bpk.packed_subbands(m, n, k)
+        name, shipping = (("banded_packed_pair", bpk.banded_stream_packed) if n_sub
+                          else ("banded_stream_pair", bo.banded_stream))
+        words = rng.integers(-(1 << 31), 1 << 31, size=(n_sub or 1, 5, W, RAGGED_S[-1]))
+        streams = torch.from_numpy(words.astype(np.int32)).cuda()
+        streams = streams if n_sub else streams[0]
+        qt = torch.from_numpy(rng.integers(0, 5, size=(PAIR_QUERIES, m)).astype(np.int32)).cuda()
+        err, got = pair_compare(name, streams, qt, kw)
+        check(err == 0, f"{name} kernel != plain on random words at {(m, n, k)} W={W}")
+        check(torch.equal(got, shipping(streams, qt, **kw)),
+              f"{name} != its shipping kernel on random words at {(m, n, k)} W={W}")
+        max_err[name] = max(max_err[name], err)
+        print(f"  q={m:3d} s={n:3d} k={k:2d}, random words, W={W}: {name} vs plain and vs its "
+              f"shipping kernel, max |diff| 0")
     after = pair_launches()
     print(f"  kernel launches in phase 17: { {k: after[k] - before[k] for k in after} }")
     return max_err
@@ -2053,11 +2081,13 @@ def phase_experiments(smi):
     bo.banded_stream_ref(stream, queries, live=live, threads=bpr.pair_threads, **kw)
     variants = {"banded_stream_pair": "pair", "banded_probe_full": "p_full",
                 "banded_probe_static_c": "p_statc", "banded_probe_noload": "p_noload"}
+    wide = int(bo.geometry(kw["q_len"], kw["s_len"], kw["k"])[1] >= 32)  # the pair's instance
     for name, label in variants.items():
         out, plain_ms, err = against_plain(name, (stream, queries), kw)
         columns = sum(live) if name == "banded_stream_pair" else Q * S * m  # probes: every one
         rows[name] = (statistics.median(stream_run["kernel_ms"][label]), plain_ms, err, Work(
-            main_library(), {}, columns, roofline.io_bytes(stream, queries, out), None))
+            main_library(), {"wide": wide}, columns, roofline.io_bytes(stream, queries, out),
+            None))
     mix = packed_runs["mix"]
     streams, queries, codes, kw = mix["streams"], mix["queries"], mix["codes"], mix["kw"]
     n_sub = streams.shape[0]

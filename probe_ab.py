@@ -9,7 +9,7 @@ parent commit unpacked with ``git archive`` into a directory that
 other, each turn a child process started in its tree, so each builds and
 imports its own ``bgsa_tpu_torch``. PART names what a turn runs
 (``bitpal``, ``cli``, ``banded``, ``generic``, ``stream``, ``myers_long``,
-``peq``; default all seven). A turn prints:
+``peq``, ``pair``; default all eight). A turn prints:
 
 - the registers, stack and shared memory of every ``banded_packed_kernel``
   instance in the tree's main kernel library, (``stream``) of every
@@ -67,7 +67,22 @@ imports its own ``bgsa_tpu_torch``. PART names what a turn runs
   against one bucket of 897,280 x 31 bp, k = 32), each with its bound from
   the tree's own SASS per column (``roofline.column_instructions``) for the
   live (pair, column) pairs the reference's checkpoints leave, at the
-  slowest pipe's rate.
+  slowest pipe's rate;
+- ``pair``: the registers, stack and shared memory of every paired-query
+  kernel and every ``banded_stream_kernel`` instance, then each pair
+  kernel beside the kernel it pairs (``banded_stream_pair`` and
+  ``banded_stream``, ``banded_packed_pair`` and ``banded_stream_packed``)
+  on the same inputs, timed as ``peq``, with output checksums, the tree's
+  own SASS per column and bound for the thread-columns the reference's
+  checkpoints leave (a pair thread runs until both its queries are over
+  budget), and the warps an SM holds of each (computed from the registers
+  and the dynamic shared memory the tree's launcher gives it, at sm_90's
+  limits), then the pair's device time over the single kernel's: at the
+  experiments' own shapes (stream: ``filter_mix_dataset`` rng 7, Q=8,
+  S=65,536, 150 bp, k = 8; packed: rng 13, Q=8, S=65,280, n_sub 3) and at
+  one 150 bp bucket (Q=20, S=190,080, k = 8, the filter mix): the stream
+  pair at 150 bp subjects, the packed pair at 150 bp (n_sub 3) and 158 bp
+  (n_sub 2).
 
 Exits with the first failing turn's code.
 """
@@ -101,11 +116,16 @@ if "myers_long" in parts:
     libs += [(build.load().path, "myers"), (build.load().path, "global31")]
 if "peq" in parts:
     libs.append((build.load().path, "banded_peq_kernel"))
+if "pair" in parts:
+    libs += [(build.load().path, "banded_stream_kernel"), (build.load().path, "pair_kernel")]
+registers = {}  # mangled name -> registers, from the main library's res-usage
 for path, pattern in libs:
     usage = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-res-usage", path],
                            capture_output=True, text=True, check=True).stdout
     print(f"{sys.argv[1]}: cuobjdump -res-usage of {os.path.basename(path)}")
     for name, res in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", usage):
+        if path == build.load().path:
+            registers[name] = int(re.search(r"REG:(\d+)", res).group(1))
         if pattern in name:
             print(f"  {name}: {res.strip()}")
 for label, fn, Q, m, S, n, wb in (
@@ -279,6 +299,98 @@ if "peq" in parts:
               f"{float((got == 127).float().mean()):.3f}; output checksum {checksum} ({smi})",
               flush=True)
         del args, got
+def resident_warps(regs, smem):
+    # warps an SM holds of a 128-thread kernel (4 warps a block) on sm_90:
+    # 65,536 registers an SM, allocated to a warp 256 at a time (a thread's
+    # count rounded up to 8); 228 KB of shared memory an SM, 1 KB of it
+    # reserved a block; at most 32 blocks and 64 warps an SM
+    by_regs = 65536 // (32 * (-(-regs // 8) * 8)) // 4
+    by_smem = 228 * 1024 // (smem + 1024)
+    return 4 * min(by_regs, by_smem, 16)
+def dynamic_smem(name, m, n_sub, wide):
+    # the dynamic shared memory the tree's launcher gives the kernel: the
+    # window slots, then the staged query rows (none in a tree whose pair
+    # kernels read their codes from global memory a column)
+    stream = name in ("banded_stream", "banded_stream_pair")
+    slots = 6 * 128 * (16 if wide else 8) if stream else n_sub * 5 * 8 * 128
+    if "pair" not in name:
+        return slots + m
+    source = "banded_pair.cu" if stream else "banded_packed_pair.cu"
+    with open(os.path.join("bgsa_tpu_torch", "csrc", source)) as f:
+        return slots + 2 * m if "pair_smem_bytes" in f.read() else 0
+if "pair" in parts:
+    from bgsa_tpu_torch import pack, roofline
+    from bgsa_tpu_torch.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.ops import banded_packed_pair as bpp
+    from bgsa_tpu_torch.ops import banded_pair as bpr
+    from bgsa_tpu_torch.pipeline import BUCKET_SIZE
+    from bgsa_tpu_torch.scripts import exp_banded_packed_pair as packed_exp
+    from bgsa_tpu_torch.scripts import exp_banded_pair as pair_exp
+    functions = roofline.sass_functions(roofline.sass_text(build.load().path))
+    def pair_line(label, route, m, n, k, codes, qt):
+        # the pair and the kernel it pairs on the same inputs: CUDA events,
+        # a CUDA graph's device time, the tree's own SASS per column and
+        # bound for the thread-columns the reference's checkpoints leave,
+        # the resident warps an SM, and output checksums; then pair / single
+        kw = dict(q_len=m, s_len=n, k=k)
+        wide = int(bo.geometry(m, n, k)[1] >= 32)
+        n_sub = bpk.packed_subbands(m, n, k) if route == "packed" else 1
+        stream = pack.pack_banded_stream(codes, k, m)
+        if route == "packed":
+            args = (BandedEngine(k, device="cuda").kernel_args("banded_stream_packed", codes, m)[0],)
+            names = {"banded_stream_packed": bpk.banded_stream_packed,
+                     "banded_packed_pair": bpp.banded_packed_pair}
+        else:
+            args = (stream,)
+            names = {"banded_stream": bo.banded_stream, "banded_stream_pair": bpr.banded_stream_pair}
+        dev = {}
+        for name, fn in names.items():
+            run = lambda: fn(*args, qt, **kw)
+            got = run()
+            checksum = int(got.long().sum())
+            ms = statistics.median(chip_smoke.cuda_times_ms(run, runs=20, warmup=3))
+            dev[name], lo, hi = device_ms(run)
+            live = []
+            threads = (bpr.pair_threads if name == "banded_stream_pair" else
+                       bpp.packed_pair_threads(n_sub) if name == "banded_packed_pair" else None)
+            bo.banded_stream_ref(stream, qt, live=live, threads=threads, **kw)
+            columns = sum(live) / (n_sub if name == "banded_stream_packed" else 1)
+            spec = roofline.SASS_SPECS[name]
+            pattern = spec.function.format(wide=wide, n_sub=n_sub)
+            per = roofline.column_instructions(roofline.find_function(functions, pattern), spec)
+            ins, rate, pipe = roofline.instruction_bound(per, columns, roofline.sm_count(),
+                                                         roofline.sm_clock_mhz())
+            bound_ms, by = roofline.bound(ins, roofline.io_bytes(*args, qt, got), rate)
+            regs = [r for fn_name, r in registers.items() if re.search(pattern, fn_name)]
+            smem = dynamic_smem(name, m, n_sub, wide)
+            print(f"  pair part, {label}: {name} Q={qt.shape[0]} S={codes.shape[0]} m={m} n={n} "
+                  f"k={k} n_sub={n_sub}: kernel median {ms:.4f} ms over 20 runs; device time "
+                  f"{dev[name]:.4f} ms ({lo:.4f}-{hi:.4f}; a CUDA graph of 20 launches, 5 "
+                  f"replays); SASS per column {per['alu']:.2f} ALU, {per['issue']:.2f} issued; "
+                  f"thread-columns {columns:.0f}; bound {bound_ms:.4f} ms by {by} ({pipe}), "
+                  f"{100 * bound_ms / dev[name]:.1f} % of the device time; registers {regs}, "
+                  f"dynamic shared memory {smem} B, resident warps an SM "
+                  f"{resident_warps(max(regs), smem)}; over budget "
+                  f"{float((got == 127).float().mean()):.3f}; output checksum {checksum} ({smi})",
+                  flush=True)
+        pair, single = [dev[name] for name in names][::-1]
+        print(f"  pair part, {label}: {list(names)[1]} / {list(names)[0]} device time "
+              f"{pair / single:.3f} ({smi})", flush=True)
+    # the experiments' own shapes
+    q, s = filter_mix_dataset(np.random.default_rng(pair_exp.SEED), pair_exp.QUERIES,
+                              pair_exp.SUBJECTS, pair_exp.LENGTH)
+    pair_line("stream experiment", "stream", pair_exp.LENGTH, pair_exp.LENGTH, pair_exp.K,
+              torch.from_numpy(s.astype(np.int32)).cuda(), torch.from_numpy(q).cuda())
+    q, s = packed_exp.inputs("mix")
+    pair_line("packed experiment (mix)", "packed", packed_exp.LENGTH, packed_exp.LENGTH,
+              packed_exp.K, torch.from_numpy(s).cuda(), torch.from_numpy(q).cuda())
+    # one 150 bp bucket: stream at 150 bp, packed at 150 bp (n_sub 3) and
+    # 158 bp subjects (n_sub 2)
+    Q, S = 20, BUCKET_SIZE // 151 // 128 * 128
+    for route, n in (("stream", 150), ("packed", 150), ("packed", 158)):
+        q, s = chip_smoke.banded_inputs(rng, Q, 150, S, n, 8, "mix")
+        pair_line(f"bucket, {n} bp", route, 150, n, 8, torch.from_numpy(s).cuda(),
+                  torch.from_numpy(q).cuda())
 for label, Q, S, geometries in lines:
     for m, n, k in geometries:
         engine = BandedEngine(k, device="cuda")
@@ -297,7 +409,7 @@ for label, Q, S, geometries in lines:
 """
 
 
-PARTS = ("bitpal", "cli", "banded", "generic", "stream", "myers_long", "peq")
+PARTS = ("bitpal", "cli", "banded", "generic", "stream", "myers_long", "peq", "pair")
 
 
 def main(argv) -> int:

@@ -427,7 +427,8 @@ def test_banded_engine_on_two_shards_of_the_card(cuda, m, n, k):
     ("bitpal_packed", {"bits": 31, "W": 17}, "bitpal_packed"),
     ("bitpal", {"bits": 32, "W": 5}, "bitpal"), ("bitpal_tiled", {"bits": 32}, "bitpal"),
     ("bitpal_packed_tiled", {"bits": 31}, "bitpal_packed"),
-    ("banded_stream_pair", {}, None), ("banded_probe_full", {}, None),
+    ("banded_stream_pair", {"wide": 0}, None), ("banded_stream_pair", {"wide": 1}, None),
+    ("banded_probe_full", {}, None),
     ("banded_probe_static_c", {}, None), ("banded_probe_noload", {}, None),
     ("banded_packed_pair", {"n_sub": 3}, None),
 ])
@@ -467,8 +468,13 @@ def test_no_spill_in_the_main_library(cuda):
 
 # -- the paired-query kernels, the banded probes, the kprint fixture -----------
 
-PAIR_STREAM = [(150, 150, 8), (150, 150, 16), (150, 181, 16), (40, 44, 4), (64, 80, 8)]
-PAIR_PACKED = [(150, 158, 8), (150, 150, 8), (72, 72, 5), (100, 100, 4), (3, 5, 4)]
+# the experiments' geometry, band_down 32 and 63, and the window edges of
+# tests/test_torch_banded_pair_window.py: q_len 32, 64 and 96, band_down 31,
+# 36 and 40; packed: n_sub 2 to 7 and q_len < k
+PAIR_STREAM = [(150, 150, 8), (150, 150, 16), (150, 181, 16), (40, 44, 4), (64, 80, 8),
+               (32, 47, 8), (32, 36, 16), (64, 72, 16), (96, 100, 16)]
+PAIR_PACKED = [(150, 158, 8), (150, 150, 8), (72, 72, 5), (100, 100, 4), (3, 5, 4),
+               (150, 151, 3), (32, 32, 4), (64, 66, 5), (96, 96, 8)]
 
 
 @pytest.mark.parametrize("S", [1, 129, 1000])
@@ -505,6 +511,29 @@ def test_packed_pair_matches_plain_and_packed(cuda, m, n, k, kind, S):
     assert bpp.LAUNCHES == before + 1
     assert torch.equal(got, bpp.banded_packed_pair_ref(streams, qt, **kw))
     assert torch.equal(got, bp.banded_stream_packed(streams, qt, **kw))
+
+
+@pytest.mark.parametrize("m,n,k,W", [(32, 47, 8, 1), (32, 47, 8, 2), (96, 100, 16, 3),
+                                     (96, 100, 16, 4), (150, 150, 8, 3), (100, 100, 4, 4)])
+def test_pair_kernels_at_the_window_edges_of_raw_words(cuda, m, n, k, W):
+    # random words, no packer (the packer leaves room): a stream window's
+    # word past W reads as 0; the packed window clamps at W - 2
+    rng = np.random.default_rng(m + W)
+    kw = dict(q_len=m, s_len=n, k=k)
+    qt = torch.from_numpy(rng.integers(0, 5, size=(4, m)).astype(np.int32)).to(cuda)
+    n_sub = bp.packed_subbands(m, n, k)
+    if n_sub:
+        streams = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(n_sub, 5, W, 300))
+                                   .astype(np.int32)).to(cuda)
+        got = bpp.banded_packed_pair(streams, qt, **kw)
+        assert torch.equal(got, bpp.banded_packed_pair_ref(streams, qt, **kw))
+        assert torch.equal(got, bp.banded_stream_packed(streams, qt, **kw))
+    else:
+        stream = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(5, W, 300))
+                                  .astype(np.int32)).to(cuda)
+        got = bpr.banded_stream_pair(stream, qt, **kw)
+        assert torch.equal(got, bpr.banded_stream_pair_ref(stream, qt, **kw))
+        assert torch.equal(got, bo.banded_stream(stream, qt, **kw))
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -284,3 +284,56 @@ def test_native_library_builds_into_the_checkout():
     assert path.startswith(native.BUILD_DIR) and os.sep + "build" + os.sep in path
     if native.get_lib() is not None:  # a toolchain was there: the build is in build/
         assert os.path.exists(path)
+
+
+# -- the package surface -------------------------------------------------------
+
+def test_package_exports_every_name_of_bgsa_tpu():
+    import bgsa_tpu
+    import bgsa_tpu_torch
+
+    assert set(bgsa_tpu.__all__) <= set(bgsa_tpu_torch.__all__)
+    assert all(hasattr(bgsa_tpu_torch, name) for name in bgsa_tpu_torch.__all__)
+    # the port's own classes and functions, not bgsa_tpu's
+    assert all(getattr(bgsa_tpu_torch, name) is not getattr(bgsa_tpu, name)
+               for name in bgsa_tpu.__all__)
+    for enum_name in ("Algorithm", "Mode"):
+        assert ([m.value for m in getattr(bgsa_tpu_torch, enum_name)]
+                == [m.value for m in getattr(bgsa_tpu, enum_name)])
+    assert ([f.name for f in dataclasses.fields(bgsa_tpu_torch.NormalizedScheme)]
+            == [f.name for f in dataclasses.fields(bgsa_tpu.NormalizedScheme)])
+
+
+@pytest.mark.parametrize("scheme,mode,algorithm", [
+    ((0, -1, -1), "global", None), ((2, -3, -5), "semi-global", None),
+    ((0, -1, -1), "global", "banded"), ((5, -1, -2), "global", "bitpal")])
+def test_package_normalize_behaves_as_bgsa_tpu(scheme, mode, algorithm):
+    import bgsa_tpu
+    import bgsa_tpu_torch
+
+    def run(pkg):
+        alg = None if algorithm is None else pkg.Algorithm(algorithm)
+        n = pkg.normalize(pkg.Scoring(*scheme), pkg.Mode(mode), algorithm=alg)
+        return (n.algorithm.value, n.mode.value, n.match, n.mismatch, n.gap, n.factor)
+
+    assert run(bgsa_tpu_torch) == run(bgsa_tpu)
+
+
+@pytest.mark.parametrize("seqs", [["ACGT", "NNAC", "tgca"], "GATTACA",
+                                  np.array([[4, 3], [0, 1]])], ids=["list", "str", "codes"])
+def test_package_encode_sequences_behaves_as_bgsa_tpu(seqs):
+    import bgsa_tpu
+    import bgsa_tpu_torch
+
+    np.testing.assert_array_equal(bgsa_tpu_torch.encode_sequences(seqs),
+                                  bgsa_tpu.encode_sequences(seqs))
+
+
+def test_package_version_is_the_distribution_version():
+    import tomllib
+
+    import bgsa_tpu_torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        assert bgsa_tpu_torch.__version__ == tomllib.load(f)["project"]["version"]

@@ -279,8 +279,8 @@ def banded_kernel():
 
 def test_sass_banded_kernel_takes_the_shortest_path_with_code_checks_falling_through():
     # the per-column form's two byte loads a column (the query code and the
-    # checkpoint flag), as the stream kernels and the Peq-carry kernel before
-    # their window fold read them (the stream pair kernel still reads them)
+    # checkpoint flag), as the stream, Peq-carry and paired-query kernels
+    # read them before their window fold
     name = "_ZN4anon20banded_stream_kernelILb0EEEv"
     ins = roofline.sass_functions(listing(name, banded_kernel()))[name]
     spec = roofline.SassSpec("banded_stream_kernelILb0E", "LDG.E.U8.CONSTANT", 2, every=False)
@@ -295,29 +295,32 @@ def test_sass_banded_kernel_takes_the_shortest_path_with_code_checks_falling_thr
     assert roofline.column_instructions(ins, every) == {"issue": 8, "alu": 3, "fma": 0.5}
 
 
-def window_fold_kernel(whole=True):
+def window_fold_kernel(whole=True, chains=1):
     """The stream kernels' batch loops as the window fold compiles them:
     each batch loads the window into the slot (10 loads, 5 stores), then a
     generic batch runs a column loop (the code from the staged row, the
     slot's words, the funnel shift, the band update; 7 instructions a trip
     here) and a whole batch (``whole``) 32 unrolled columns (4 instructions
     each: the funnel amount is a constant); each batch ends with the latch
-    and the warp's vote."""
+    and the warp's vote. ``chains`` 2: the pair kernel, whose column reads
+    both rows' codes and folds the slot once for each."""
     window = [("", f"LDG.E.CONSTANT R{20 + c}, desc[UR6][R8.64+{4 * c:#x}]") for c in range(10)]
     window += [("", f"STS.64 [R3+{0x400 * c:#x}], R{20 + 2 * c}") for c in range(5)]
     vote = [("", "ISETP.GT.AND P4, PT, R2, UR8, PT"), ("", "VOTE.ALL P5, P4")]
     body = [("", "S2R R0, SR_TID.X")]
     body += [(*window[0], "generic")] + window[1:]
-    body += [("", "LDS.U8 R12, [R4+UR5]", "col"), ("", "LEA R13, R12, R3, 0xa"),
-             ("", "LDS.64 R14, [R13]"), ("", "SHF.R.W.U32 R16, R14, R7, R15"),
-             ("", "LOP3.LUT R17, R16, R10, RZ, 0xfc, !PT"), ("", "VIADD R4, R4, 0x1"),
-             ("@!P3", "BRA @col")]
+    column = [("", "LDS.U8 R12, [R4+UR5]"), ("", "LEA R13, R12, R3, 0xa"),
+              ("", "LDS.64 R14, [R13]"), ("", "SHF.R.W.U32 R16, R14, R7, R15"),
+              ("", "LOP3.LUT R17, R16, R10, RZ, 0xfc, !PT")] * chains
+    body += [(*column[0], "col")] + column[1:]
+    body += [("", "VIADD R4, R4, 0x1"), ("@!P3", "BRA @col")]
     body += vote + [("@!P5", "BRA @generic")]
     if whole:
         body += [(*window[0], "whole")] + window[1:]
         for i in range(32):
             body += [("", f"LDS.U8 R12, [R4+{i:#x}]"), ("", "LEA R13, R12, R3, 0xa"),
-                     ("", "LDS.64 R14, [R13]"), ("", f"SHF.R.W.U32 R16, R14, {i:#x}, R15")]
+                     ("", "LDS.64 R14, [R13]"), ("", f"SHF.R.W.U32 R16, R14, {i:#x}, R15")
+                     ] * chains
         body += vote + [("@!P5", "BRA @whole")]
     return body + [("", "EXIT")]
 
@@ -560,12 +563,16 @@ def test_sass_probe_kernel_column_from_its_innermost_largest_loop():
 
 def test_sass_specs_of_the_paired_query_kernels():
     specs = roofline.SASS_SPECS
-    # two query codes and the checkpoint flag a pair column; two codes a packed pair column
-    assert (specs["banded_stream_pair"].anchor, specs["banded_stream_pair"].anchors) == (
-        "LDG.E.U8.CONSTANT", 3)
+    # both query codes from the rows staged in shared memory, two a pair
+    # column, the window's loads outside the cheapest path (as the shipping
+    # stream and packed kernels)
+    for name in ("banded_stream_pair", "banded_packed_pair"):
+        assert (specs[name].anchor, specs[name].anchors, specs[name].every) == (
+            "LDS.U8", 2, False), name
+    assert specs["banded_stream_pair"].function.format(wide=1) == (
+        "banded_stream_pair_kernelILb1E")
     assert specs["banded_packed_pair"].function.format(n_sub=3) == (
         "banded_packed_pair_kernelILi3E")
-    assert specs["banded_packed_pair"].anchors == 2
     assert specs["banded_probe_full"].anchors == 1
     for mode, i in (("full", 0), ("static_c", 1), ("noload", 2)):
         assert specs[f"banded_probe_{mode}"].function == f"banded_probe_kernelILi{i}E"
@@ -575,3 +582,26 @@ def test_sass_specs_of_the_paired_query_kernels():
         text = f.read()
     assert "kProbeFull = 0, kProbeStaticC = 1, kProbeNoLoad = 2" in text
     assert f"kProbeUnroll = {roofline.PEAK_UNROLL};" in text
+    # the stream pair's instance is csrc/banded_pair.cu's <Wide>, chosen as
+    # the stream kernel chooses it
+    assert "template <bool Wide>\n__global__ void __launch_bounds__(kThreads, 1)\n" \
+           "banded_stream_pair_kernel(" in text
+    assert "return band_down >= 32\n             ? launch_pair<true>" in text
+
+
+def test_sass_stream_pair_kernel_counts_pair_columns():
+    # one trip of the pair's column loops holds both chains' columns: two
+    # LDS.U8 a pair column, so a pair column costs two chains' instructions
+    spec = roofline.SASS_SPECS["banded_stream_pair"]
+    name = "_ZN4anon25banded_stream_pair_kernelILb0EEEvPKjPKhPiiiiiiiiii"
+    generic = roofline.sass_functions(listing(name, window_fold_kernel(whole=False, chains=2)))
+    per = roofline.column_instructions(
+        roofline.find_function(generic, spec.function.format(wide=0)), spec)
+    # 2 x (LDS.U8, LEA, LDS.64, SHF, LOP3) + VIADD + BRA (ALU: 2 x (LEA, SHF, LOP3))
+    assert per == {"issue": 12, "alu": 6, "fma": 0}
+    functions = roofline.sass_functions(listing(name, window_fold_kernel(chains=2)))
+    per = roofline.column_instructions(
+        roofline.find_function(functions, spec.function.format(wide=0)), spec)
+    # the whole batches: 32 x 8 + 15 (the window, once a batch for both
+    # chains) + 3 issued over 32 pair columns (ALU: 32 x 2 x (LEA, SHF) + ISETP)
+    assert per == {"issue": (256 + 15 + 3) / 32, "alu": (128 + 1) / 32, "fma": 0}
