@@ -1,10 +1,14 @@
 """Benchmark workloads and timing chains: the port's own copies of
 ``bgsa_tpu.benchutil``'s numpy ``filter_mix_dataset`` and ``chain_of``, same
 behaviour; ``elapsed_ms``, which times one call by CUDA events,
-``kernel_ms`` and ``kernel_times``, which read kernels' device times from
-the profiler, and what the hand-run scripts share (``script_device``, their
-``--device`` rule; ``device_name``; ``GateFailure``)."""
+``graph_times_ms``, which reads a call's device time from a CUDA graph's
+replays, ``kernel_ms`` and ``kernel_times``, which read kernels' device
+times from the profiler, and what the hand-run scripts share (``script_device``, their
+``--device`` rule; ``device_name``; ``GateFailure``; ``make_testdata``, the
+repository's test dataset)."""
 
+import importlib.util
+import os
 import re
 import statistics
 import sys
@@ -67,6 +71,29 @@ def elapsed_ms(fn, device) -> float:
     return start.elapsed_time(stop)
 
 
+# graph_times_ms: calls captured in one CUDA graph, and its timed replays
+GRAPH_LAUNCHES, GRAPH_REPLAYS = 20, 5
+
+
+def graph_times_ms(fn) -> list:
+    """Device ms of one ``fn()`` on the current CUDA device: GRAPH_LAUNCHES
+    calls captured in one CUDA graph, each of GRAPH_REPLAYS replays (after
+    one warm-up replay) timed by CUDA events, over the launches. A call timed
+    alone by CUDA events also holds the host's dispatch, which is as long as
+    a sub-0.2 ms kernel; a replay launches the kernels back to back from the
+    device."""
+    fn()  # warm-up: the library is loaded outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    device = torch.cuda.current_device()
+    return [elapsed_ms(graph.replay, torch.device("cuda", device)) / GRAPH_LAUNCHES
+            for _ in range(GRAPH_REPLAYS)]
+
+
 def kernel_ms(fn, kernel: str) -> list:
     """Device milliseconds of each launch, during one ``fn()``, of the CUDA
     kernels whose name matches the regular expression ``kernel``, from
@@ -120,6 +147,29 @@ def kernel_times(samples: dict, kernels: dict, device, n_chain: int) -> dict:
 def median_gcups(cells: float, times_ms: dict) -> dict:
     """name -> billed GCUPS: ``cells`` over the median of each list of times (ms)."""
     return {name: cells / (statistics.median(ms) * 1e-3) / 1e9 for name, ms in times_ms.items()}
+
+
+def make_testdata(outdir, n_queries: int, n_subjects: int, length: int,
+                  subject_length: int | None = None):
+    """``scripts/make_testdata.py``'s files (its seed 1 and order: the
+    queries, then the subjects; subjects of ``subject_length`` bp where
+    given, else ``length``) in ``outdir`` -> (query path, subject path); a
+    pair already there is kept. That script is loaded by path from the
+    repository's root."""
+    subject_length = subject_length or length
+    qp = os.path.join(outdir, f"query{n_queries}_{length}bp.txt")
+    sp = os.path.join(outdir, f"subj{n_subjects}_{subject_length}bp.txt")
+    if os.path.exists(qp) and os.path.exists(sp):
+        return qp, sp
+    spec = importlib.util.spec_from_file_location("make_testdata", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+        "make_testdata.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    rng = np.random.default_rng(1)
+    mod.write_lines(qp, n_queries, length, rng)
+    mod.write_lines(sp, n_subjects, subject_length, rng)
+    return qp, sp
 
 
 def device_name(device) -> str:

@@ -21,6 +21,14 @@ that the output equals it, times it (CUDA events, ``RUNS`` launches after
 one warm-up) and the plain version (one call), and prints one JSON line with
 the launch counts and times; every launch and the plain call each print one
 ``probe 0`` line. Without a GPU and without ``--device cpu`` it exits 1.
+
+On a card it also reads device times (``device_ms``: a CUDA graph of
+``benchutil.GRAPH_LAUNCHES`` launches, replayed; device printf works inside
+a graph) of the fixture and of two reference kernels of the same file,
+measurement tools with no TPU twin: ``empty_probe``, a launch of one block
+that does nothing (the floor of any launch on the card), and
+``copy_probe``, the fixture's grid and copy without the print. A CUDA-event
+time holds the host's dispatch, which is most of a launch this short.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import sys
 import numpy as np
 import torch
 
+from . import benchutil
 from .benchutil import elapsed_ms, script_device
 
 # Kernel launches made by ``kprint_probe`` (CUDA tensors only).
@@ -98,6 +107,43 @@ def kprint_probe(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _launch(fn_name: str, device, *args) -> None:
+    from .ops import build
+
+    kernels = build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(kernels.lib, fn_name)(*args, stream)
+    kernels.check(rc, fn_name)
+
+
+def copy_probe(x: torch.Tensor) -> torch.Tensor:
+    """A reference kernel: ``kprint_probe`` without the print (the same grid
+    and copy loop). Plain version for a CPU tensor: a copy."""
+    if x.dim() != 2 or x.numel() == 0 or x.dtype != torch.int32:
+        raise ValueError(f"x must be a non-empty (R, C) int32 tensor, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if x.device.type == "cpu":
+        return x.clone()
+    if x.device.type != "cuda":
+        raise ValueError(f"no copy_probe for device {x.device}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _launch("bgsa_copy_probe", x.device, x.data_ptr(), out.data_ptr(), x.numel())
+    return out
+
+
+def empty_probe(device) -> None:
+    """A reference kernel: one block that does nothing, on ``device``'s
+    current stream. Plain version on the CPU: nothing."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return
+    if device.type != "cuda":
+        raise ValueError(f"no empty_probe for device {device}")
+    _launch("bgsa_empty_probe", device)
+
+
 def flush_device_prints() -> None:
     """Synchronise the current CUDA device, which moves its printf buffer to
     the C stdout buffer, and flush that to the file descriptor."""
@@ -131,9 +177,21 @@ def main(argv=None) -> int:
                       plain_ms=elapsed_ms(lambda: kprint_probe_ref(x), device))
         prints += 1 + RUNS + 1
         flush_device_prints()
+        copied = copy_probe(x)
+        result["copy_equals_x"] = bool(torch.equal(copied, x))
+        device_ms = {name: statistics.median(benchutil.graph_times_ms(fn)) for name, fn in {
+            "kprint_probe": lambda: kprint_probe(x), "copy_probe": lambda: copy_probe(x),
+            "empty_probe": lambda: empty_probe(device)}.items()}
+        # the fixture's launches while its device time was read: a warm-up
+        # call, then GRAPH_LAUNCHES a replay (one warm-up, GRAPH_REPLAYS timed)
+        prints += 1 + benchutil.GRAPH_LAUNCHES * (1 + benchutil.GRAPH_REPLAYS)
+        result.update(device_ms=device_ms["kprint_probe"],
+                      copy_device_ms=device_ms["copy_probe"],
+                      empty_device_ms=device_ms["empty_probe"])
+        flush_device_prints()
     result["probe_lines"] = prints  # lines "probe <x[0, 0]>" this run prints
     print(json.dumps(result), flush=True)
-    return 0 if result["out_equals_x"] else 1
+    return 0 if result["out_equals_x"] and result.get("copy_equals_x", True) else 1
 
 
 if __name__ == "__main__":

@@ -162,6 +162,8 @@ _SIGNATURES = {
     "bgsa_banded_packed_pair": [_ptr] * 3 + [_i32] * 9 + [_ptr],
     "bgsa_banded_packed_probe": [_ptr] * 3 + [_i32] * 9 + [_ptr],
     "bgsa_kprint_probe": [_ptr] * 2 + [_i32] + [_ptr],
+    "bgsa_copy_probe": [_ptr] * 2 + [_i32] + [_ptr],
+    "bgsa_empty_probe": [_ptr],
 }
 # each scheme library's kernel: (eq, queries, out, scratch, Q, m, W, S,
 # read_len, factor, semi_global, word_bits, stream)

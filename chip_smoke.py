@@ -147,6 +147,10 @@ Phases; any failure exits non-zero, before the result line:
     C stdout at a synchronisation, after lines Python printed later, so the
     script reads the child's output instead of launching it: one ``probe 0``
     line a launch and the plain call, and the output equal to its input;
+    the child also reads the device times (a CUDA graph of 20 launches,
+    replayed) of the fixture and of two reference kernels of its file, an
+    empty launch and the copy without the print: the fixture's row is bound
+    by the larger of its bytes and the empty launch's device time;
 20. ``bgsa_tpu_torch.scripts.gpu_parity`` returns 0: every kernel family
     against the oracles at unaligned shapes, packed n_sub 5 and 6 included;
 21. heterogeneous co-compute and host roles: the plain CPU engine's rate
@@ -163,7 +167,19 @@ Phases; any failure exits non-zero, before the result line:
     the launches each child counts), merged by ``bgsa-torch-merge`` and
     converted by ``bgsa-torch-convert`` equal to phase 5's single-host
     file (``.info`` ``device_num`` 2), and the same two roles under ``-D
-    --sync-dir``, both applying one ratio schedule.
+    --sync-dir``, both applying one ratio schedule;
+22. the flagship step, ``graft_entry.entry("cuda")`` (Eq packing, then the
+    full-word Myers kernel: one launch), every score against the oracle;
+    then ``graft_entry.dryrun_multichip(8, [cuda:0] * 8)``, one step of
+    every kernel family over eight shards of the card (the 31-bit mesh, held
+    to the oracle; semi-global Myers, packed BitPAl, banded and the packed
+    banded kernel on two shards, the ``2bitN`` sidecar: each equal to one
+    device), its launch counters set to 0 before and read after: each
+    step's kernel launched at least once a shard and once for one device;
+23. ``python -m bgsa_tpu_torch.scripts.multihost_demo`` on the card: 200,000
+    x 150 bp subjects (``scripts/make_testdata.py``, seed 1), two ``--host``
+    roles in turn, merged and converted, for Myers and ``-k 8``: both
+    families byte-equal to the single-host run, each role's seconds printed.
 
 The oracle samples of phases 3, 5 and 14 run in a pool of worker
 processes (the numpy oracle's O(m n) sweeps over the host's cores) that
@@ -176,7 +192,7 @@ together, and phase 1 fails on a spill or a stack frame in any function of
 any library's ptxas report (kept beside a cached library), except the
 stack frame of a kernel that calls device printf: its argument buffer.
 The script imports ``bgsa_tpu_torch``, torch, numpy and the standard
-library, and loads ``scripts/make_testdata.py`` by path; it fails if jax
+library (``scripts/make_testdata.py`` through ``benchutil.make_testdata``); it fails if jax
 or any ``bgsa_tpu`` module was loaded.
 
 The second-to-last line is a JSON object describing each kernel of the
@@ -198,15 +214,19 @@ never in it: ``state_bytes``, the bytes it moves through device memory
 (BitPAl's planes between tiles, the strip kernels' carry words between
 strips, each written and read once), and ``design_sass``, the tiled or
 strip kernel's own SASS per word-column (null elsewhere); and
-``device_ms``, each banded kernel's device time from a CUDA graph (null
-elsewhere). The last line is ``{"ok": true, "device": {...}}``.
+``device_ms``, each banded kernel's and the kprint fixture's device time
+from a CUDA graph (null elsewhere). The kprint fixture computes nothing:
+its bound is the larger of its bytes over the memory rate and an empty
+launch's device time on the card (``launch_ms``, from phase 19); where the
+launch is the larger, the row's ``bound_from`` says "launch" and its
+``bound_by`` "operations" (``bound_from`` names every row's bound). The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
-import importlib.util
 import json
 import multiprocessing
 import os
@@ -248,6 +268,7 @@ PAIR_KERNELS = {
                            "scripts/exp_banded_packed_pair.py:40"),
 }
 KPRINT = ("bgsa_tpu_torch/csrc/kprint_probe.cu", "tests/test_round2_fixes.py:90")
+KPRINT_BYTES = 2 * 4 * 8 * 128  # the fixture's (8, 128) int32 read once and written once
 PRINTF_KERNELS = ("kprint_probe_kernel",)  # kernels allowed a stack frame: device printf
 PARITY_SPECS = [("bitpal_packed", 1, -2, -3)]  # gpu_parity's 3-plane packed network
 
@@ -276,6 +297,9 @@ class Work:
     state_bytes: int = 0  # device scratch the design moves besides (not in the bound)
     design: str | None = None  # roofline.SASS_SPECS entry of the design's loop (not in the bound)
     bound_spec: str | None = None  # roofline.SASS_SPECS entry of the bound, if not the row's name
+    # a row whose work is a launch: the least device time of any launch on the
+    # card (the empty reference kernel's), a floor beside its bytes
+    launch_ms: float = 0.0
 
 
 # the Myers kernels past their register bound (the strip kernels), timed in
@@ -660,14 +684,6 @@ def phase_goldens(tmp):
         print(f"  {golden}: byte-equal")
 
 
-def load_make_testdata():
-    spec = importlib.util.spec_from_file_location(
-        "make_testdata", os.path.join(REPO, "scripts", "make_testdata.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def result_scores(result_path, n_queries, n_subjects, dtype):
     """(Q, S) scores of a one-device result file with one query bucket
     (n_queries <= 100), read back through its ``.info`` bucket layout. The
@@ -719,7 +735,7 @@ def print_stats(stats_path):
     return st
 
 
-def long_cli_run(rng, tmp, make_testdata, n_q, m, n_s, n, samples, wave):
+def long_cli_run(rng, tmp, n_q, m, n_s, n, samples, wave):
     """``bgsa-torch-align`` over n_q x m bp queries and n_s x n bp subjects
     from ``scripts/make_testdata.py``'s generator (seed 1): every launch the
     strip kernel's (``wave``: the wavefront's), counted; every score of the
@@ -727,6 +743,7 @@ def long_cli_run(rng, tmp, make_testdata, n_q, m, n_s, n, samples, wave):
     run, many pairs: the strips on one warp a group), and ``samples`` of
     them to the oracle. Returns the launches."""
     from bgsa_tpu_torch import cli, pack
+    from bgsa_tpu_torch.benchutil import make_testdata
     from bgsa_tpu_torch.io import seqfile
     from bgsa_tpu_torch.ops import myers_semiglobal as ms
     from bgsa_tpu_torch.pack import encode_ascii
@@ -735,10 +752,7 @@ def long_cli_run(rng, tmp, make_testdata, n_q, m, n_s, n, samples, wave):
     schedule = "the wavefront" if wave else "one warp a group"
     print(f"  long subjects: {n_q} x {m} bp queries vs {n_s} x {n} bp subjects "
           f"({-(-n_s // bucket_subjects(n))} buckets; the strip kernel, {schedule})")
-    qp, sp = os.path.join(tmp, f"query{n_q}_{m}bp.txt"), os.path.join(tmp, f"subj{n_s}_{n}bp.txt")
-    data_rng = np.random.default_rng(1)
-    make_testdata.write_lines(qp, n_q, m, data_rng)
-    make_testdata.write_lines(sp, n_s, n, data_rng)
+    qp, sp = make_testdata(tmp, n_q, n_s, m, n)
     res, stats_path = os.path.join(tmp, "r_long.bin"), os.path.join(tmp, "stats_long.json")
     ms.LAUNCHES = ms.STRIP_LAUNCHES = ms.WAVE_LAUNCHES = 0
     rc = cli.align_main(["-q", qp, "-d", sp, "-f", res, "--stats-json", stats_path, "--quiet"])
@@ -770,19 +784,15 @@ def long_cli_run(rng, tmp, make_testdata, n_q, m, n_s, n, samples, wave):
 
 def phase_production(rng, tmp, smi):
     from bgsa_tpu_torch import cli
+    from bgsa_tpu_torch.benchutil import make_testdata
     from bgsa_tpu_torch.ops import myers_semiglobal as ms
     from bgsa_tpu_torch.schemes import Mode
 
     n_queries, n_subjects, length, n_semi = 20, 1_000_000, 150, 100_000
     phase(f"== phase 5: production size, {n_queries} x {length} bp queries vs "
           f"{n_subjects} x {length} bp subjects through bgsa_tpu_torch.cli ({smi})")
-    make_testdata = load_make_testdata()
-    data_rng = np.random.default_rng(1)  # scripts/make_testdata.py's seed and order
-    qp = os.path.join(tmp, f"query{n_queries}_{length}bp.txt")
-    sp = os.path.join(tmp, f"subj{n_subjects}_{length}bp.txt")
     t0 = time.perf_counter()
-    make_testdata.write_lines(qp, n_queries, length, data_rng)
-    make_testdata.write_lines(sp, n_subjects, length, data_rng)
+    qp, sp = make_testdata(tmp, n_queries, n_subjects, length)
     print(f"  generated inputs in {time.perf_counter() - t0:.2f} s")
 
     res, stats_path = os.path.join(tmp, "r.bin"), os.path.join(tmp, "stats.json")
@@ -808,7 +818,7 @@ def phase_production(rng, tmp, smi):
     check_against_oracle(rng, qp, sp_semi, res_semi, Mode.SEMI_GLOBAL, n_semi)
 
     # long subjects: every bucket past the register bound
-    long_launches = [long_cli_run(rng, tmp, make_testdata, *shape, wave)
+    long_launches = [long_cli_run(rng, tmp, *shape, wave)
                      for shape, wave in zip(LONG_CLI, (False, True))]
     return (launches, *long_launches), (qp, sp, sp_semi)
 
@@ -844,8 +854,6 @@ RAGGED_S = (1, 129, 1000)
 # one bucket of the production run (BUCKET_SIZE // 151, in 128s)
 BANDED_TIMED = (("bench line (bench.py:278-284)", 8, 65280),
                 ("one production bucket", 20, 190080))
-# device time: launches a CUDA graph, replays timed
-GRAPH_LAUNCHES, GRAPH_REPLAYS = 20, 5
 # the stream, dual and Peq-carry kernels' own geometries (q_len, s_len, k),
 # timed at both BANDED_TIMED shapes: stream at band_down 32 and 63, dual at
 # 148 bp (the 148 bp CLI run's) and 95 bp subjects (2k >= 32), Peq-carry at
@@ -980,7 +988,8 @@ def phase_banded_kernels(rng):
 def phase_banded_bench(rng, smi):
     from bgsa_tpu_torch import roofline
     from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
-    from bgsa_tpu_torch.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.benchutil import (GRAPH_LAUNCHES, GRAPH_REPLAYS, filter_mix_dataset,
+                                          graph_times_ms)
     from bgsa_tpu_torch.ops import banded as banded_ops
     from bgsa_tpu_torch.ops.banded_packed import packed_subbands
 
@@ -1057,7 +1066,7 @@ def peq_route_bucket(rng, smi):
     and its bound printed."""
     from bgsa_tpu_torch import roofline
     from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
-    from bgsa_tpu_torch.benchutil import filter_mix_dataset
+    from bgsa_tpu_torch.benchutil import filter_mix_dataset, graph_times_ms
     from bgsa_tpu_torch.ops import banded as banded_ops
 
     Q, m, n, k = PEQ_BUCKET
@@ -1091,21 +1100,6 @@ def peq_route_bucket(rng, smi):
           f"{Q * S * m}; bound {bound_ms:.4f} ms by {bound_by} ({pipe} pipe; SASS per column "
           f"{per_column['alu']:.1f} ALU, {per_column['issue']:.1f} issued), "
           f"{100 * bound_ms / device_ms:.1f} % of the device time; max |diff| {err} ({smi})")
-
-
-def graph_times_ms(fn) -> list:
-    """Device ms of one ``fn()``: GRAPH_LAUNCHES calls captured in one CUDA
-    graph, each of GRAPH_REPLAYS replays timed by CUDA events, over the
-    launches. A call timed alone by CUDA events also holds the host's
-    dispatch, which is as long as a sub-0.2 ms kernel; a replay launches the
-    kernels back to back from the device."""
-    fn()  # warm-up: the library is loaded outside the capture
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(GRAPH_LAUNCHES):
-            fn()
-    return [t / GRAPH_LAUNCHES for t in cuda_times_ms(graph.replay, runs=GRAPH_REPLAYS, warmup=1)]
 
 
 def write_codes(path, codes):
@@ -2112,7 +2106,7 @@ def phase_experiments(smi):
     return launches, rows
 
 
-def phase_kprint():
+def phase_kprint(smi):
     """The fixture in a child process -> its JSON result (launches, ms, plain ms)."""
     phase(f"== phase 19: the kprint fixture in a child process (python -m bgsa_tpu_torch.debug)")
     proc = subprocess.run([sys.executable, "-m", "bgsa_tpu_torch.debug"], cwd=REPO,
@@ -2128,9 +2122,16 @@ def phase_kprint():
     check(result["launches"] == 1, f"the fixture launched {result['launches']} kernels, not 1")
     check(probes == result["probe_lines"],
           f"{probes} 'probe 0' lines on the child's stdout, not {result['probe_lines']}")
+    check(result["copy_equals_x"], "copy_probe's output != its input")
     print(f"  exit 0; 'probe 0' printed {probes} times (the fixture's launch, a warm-up, "
-          f"{result['timed_launches']} timed launches, the plain version); out == x; kernel "
-          f"median {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms ({result['device']})")
+          f"{result['timed_launches']} timed launches, the plain version, and the launches of "
+          f"its device time); out == x; kernel median {result['ms']:.4f} ms by CUDA events "
+          f"(the host's dispatch included), plain {result['plain_ms']:.4f} ms ({result['device']})")
+    print(f"  device time (a CUDA graph of 20 launches, replayed): the fixture "
+          f"{result['device_ms']:.4f} ms, the copy without the print {result['copy_device_ms']:.4f} ms, an empty launch "
+          f"{result['empty_device_ms']:.4f} ms; the print's share (fixture - copy) "
+          f"{result['device_ms'] - result['copy_device_ms']:.4f} ms, the copy's (copy - empty) "
+          f"{result['copy_device_ms'] - result['empty_device_ms']:.4f} ms ({smi})")
     return result
 
 
@@ -2359,6 +2360,110 @@ def phase_hetero_and_roles(tmp, smi, inputs, single_result):
     return launched, roles
 
 
+# -- the flagship step, the dry run and the multi-host demo ---------------------
+
+DRYRUN_DEVICES = 8  # dryrun_multichip over [cuda:0] * 8: two query shards, four subject shards
+DEMO_SUBJECTS = 200_000  # phase 23's dataset (make_testdata.py, seed 1), 150 bp
+
+
+def reset_all_launch_counts():
+    from bgsa_tpu_torch.ops import myers_pallas as mp
+
+    reset_launch_counts()
+    mp.LAUNCHES = 0
+
+
+def all_launch_counts():
+    """Every launch counter a dry-run step reads (the banded kernels' summed)."""
+    from bgsa_tpu_torch.ops import bitpal_packed as bpp
+    from bgsa_tpu_torch.ops import myers_pallas as mp
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+
+    banded = banded_launches()
+    return {"myers_pallas": mp.LAUNCHES, "myers_semiglobal": ms.LAUNCHES,
+            "bitpal_packed": bpp.LAUNCHES, "banded_stream_packed": banded["banded_stream_packed"],
+            "banded (every route)": sum(banded.values())}
+
+
+def phase_flagship_and_dryrun(smi):
+    """``graft_entry.entry("cuda")`` once against the oracle, then
+    ``dryrun_multichip`` over cuda:0 repeated -> the flagship's launches."""
+    from bgsa_tpu_torch import graft_entry, oracle
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+
+    phase(f"== phase 22: the flagship step (graft_entry.entry) and dryrun_multichip over "
+          f"[cuda:0] * {DRYRUN_DEVICES} ({smi})")
+    fn, (qcodes, scodes) = graft_entry.entry("cuda")
+    reset_all_launch_counts()
+    got = fn(qcodes, scodes)
+    torch.cuda.synchronize()
+    launches = ms.LAUNCHES
+    check(launches == 1, f"entry's step launched myers_semiglobal {launches} times, not once")
+    check(got.device.type == "cuda" and got.dtype == torch.int16
+          and tuple(got.shape) == (graft_entry.Q, graft_entry.S), f"entry's scores: {got.shape}")
+    q, s, host = qcodes.cpu().numpy(), scodes.cpu().numpy(), got.cpu().numpy()
+    bad = sum(int(np.count_nonzero(host[i] != -oracle.edit_distances(q[i], s)))
+              for i in range(len(q)))
+    check(bad == 0, f"entry: {bad} scores differ from the oracle")
+    print(f"  entry('cuda'): fn(qcodes {tuple(q.shape)}, scodes {tuple(s.shape)}) -> "
+          f"{tuple(host.shape)} int16 on the card; myers_semiglobal launches {launches}; all "
+          f"{host.size} scores equal the oracle")
+
+    n = DRYRUN_DEVICES
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    out = graft_entry.dryrun_multichip(n, [CARD] * n)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    grew = all_launch_counts()
+    # each step's kernel: its shards' launches, plus one where it compares
+    # with one device (steps 2-6); step 5 runs on two shards
+    need = {"myers_pallas": n, "myers_semiglobal": 2 * (n + 1), "bitpal_packed": n + 1,
+            "banded_stream_packed": 2 + 1, "banded (every route)": (n + 1) + (2 + 1)}
+    for counter, least in need.items():
+        check(grew[counter] >= least, f"dryrun_multichip launched {counter} {grew[counter]} "
+                                      f"times, fewer than its steps' {least}")
+    qs = 2 if n % 2 == 0 else 1
+    rng = np.random.default_rng(0)  # the dry run's own step-1 inputs, redrawn
+    mq = rng.integers(0, 4, size=(2 * qs, 32)).astype(np.int32)
+    msub = rng.integers(0, 4, size=(128 * (n // qs), 32))
+    want = np.stack([-oracle.edit_distances(row, msub) for row in mq])
+    check(np.array_equal(out["myers_mesh"], want), "the mesh step != the oracle")
+    kernels = {"myers_mesh": "myers_pallas", "myers_semiglobal": "myers_semiglobal",
+               "bitpal_packed": "bitpal_packed", "banded": "banded (every route)",
+               "banded_packed": "banded_stream_packed", "sidecar": "myers_semiglobal"}
+    for step, scores in out.items():
+        held = ("every score equal to the oracle" if step == "myers_mesh"
+                else "equal to one device")
+        print(f"  {step:16s} {str(scores.shape):12s} kernel {kernels[step]}; {held}")
+    print(f"  launches during the dry run {grew} (at least {need}); {seconds:.2f} s")
+    return launches
+
+
+def phase_multihost_demo(tmp, smi):
+    """The multi-host demo on the card: its report's byte checks."""
+    phase(f"== phase 23: python -m bgsa_tpu_torch.scripts.multihost_demo, {DEMO_SUBJECTS} "
+          f"subjects, two host roles, Myers and banded ({smi})")
+    outdir = os.path.join(tmp, "demo")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bgsa_tpu_torch.scripts.multihost_demo", outdir,
+                           "--subjects", str(DEMO_SUBJECTS), "--hosts", "2", "--banded"],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the demo exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(os.path.join(outdir, "report.json")) as f:
+        report = json.load(f)
+    check(set(report["families"]) == {"myers", "banded"}, f"families {report['families']}")
+    for name, st in report["families"].items():
+        check(st.get("byte_equal_vs_single_host") is True,
+              f"{name}: merged output not byte-equal to the single-host run")
+        print(f"  {name:6s}: merged 2-role output byte-equal to the single-host run; single "
+              f"{st['single_s']:.2f} s, roles {[round(r, 2) for r in st['roles_s']]} s, merge "
+              f"{st['merge_s']:.2f} s, convert {st['convert_s']:.2f} s (each a child process)")
+    print(f"  the demo exited 0 in {seconds:.1f} s")
+    return report
+
+
 def library_sass(library, sass) -> dict:
     """The SASS functions of a library, read once (``sass`` caches them)."""
     from bgsa_tpu_torch import roofline
@@ -2383,14 +2488,25 @@ def design_sass(work, sass):
         library_sass(work.library, sass), spec.function.format(**work.shape)), spec)
 
 
+# the kernels line's bound_by takes "bytes" or "operations": a launch's floor
+# is the card's fixed work for a grid, no bytes, so it is "operations" there,
+# and the row's bound_from says "launch"
+LINE_BOUND_BY = {"bytes": "bytes", "operations": "operations", "launch": "operations"}
+
+
 def kernel_bound(name, ms, work, sass, peak_ops_per_s):
-    """(bound ms, "operations" or "bytes", pipe, instructions per column,
-    JAX-op share) of one kernel row."""
+    """(bound ms, "operations", "bytes" or "launch", pipe, instructions per
+    column, JAX-op share) of one kernel row. "launch": the row computes
+    nothing and an empty launch's device time (``work.launch_ms``) is above
+    its bytes' time."""
     from bgsa_tpu_torch import roofline
 
     spec_name = work.bound_spec or name
-    if spec_name not in roofline.SASS_SPECS:  # computes nothing: its bytes bound it
-        return (*roofline.bound(0, work.nbytes, 1.0), None, None, None)
+    if spec_name not in roofline.SASS_SPECS:  # computes nothing: its bytes or a launch bound it
+        bytes_ms, bound_by = roofline.bound(0, work.nbytes, 1.0)
+        if work.launch_ms > bytes_ms:
+            return work.launch_ms, "launch", None, None, None
+        return bytes_ms, bound_by, None, None, None
     spec = roofline.SASS_SPECS[spec_name]
     per_column = roofline.column_instructions(
         roofline.find_function(library_sass(work.library, sass),
@@ -2441,9 +2557,11 @@ def main() -> int:
             peak, peak_err, peak_launched, peak_plain, peak_work = phase_int_peak(smi)
             pair_err = phase_pair_kernels(rng)
             pair_launched, pair_rows = phase_experiments(smi)
-            kprint = phase_kprint()
+            kprint = phase_kprint(smi)
             phase_gpu_parity()
             phase_hetero_and_roles(tmp, smi, inputs, os.path.join(tmp, "r.bin"))
+            phase_flagship_and_dryrun(smi)
+            phase_multihost_demo(tmp, smi)
         check("jax" not in sys.modules, "jax was imported")
         check(not any(m == "bgsa_tpu" or m.startswith("bgsa_tpu.") for m in sys.modules),
               "a bgsa_tpu module was imported")
@@ -2482,7 +2600,10 @@ def main() -> int:
         rows.append((name, source, replaces, pair_launched[name], max(err, pair_err[name]), ms,
                      plain, work))
     rows.append(("kprint_probe", *KPRINT, kprint["launches"], 0, kprint["ms"], kprint["plain_ms"],
-                 Work(None, {}, 0, 2 * 4 * 8 * 128, None)))
+                 Work(None, {}, 0, KPRINT_BYTES, None, launch_ms=kprint["empty_device_ms"])))
+    device["kprint_probe"] = kprint["device_ms"]
+    from bgsa_tpu_torch import roofline
+
     phase(f"== bounds: each kernel's SASS per column at the slowest pipe's rate, or its bytes")
     kernels, sass = [], {}
     try:
@@ -2492,11 +2613,16 @@ def main() -> int:
             design = design_sass(work, sass)
             kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                             "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                            "device_ms": device.get(name), "state_bytes": work.state_bytes,
+                            "bound_ms": bound_ms, "bound_by": LINE_BOUND_BY[bound_by],
+                            "bound_from": bound_by, "library_ms": None,
+                            "device_ms": device.get(name), "launch_ms": work.launch_ms or None,
+                            "state_bytes": work.state_bytes,
                             "design_sass": design})
             if per_column is None:
-                how = "its bytes: it computes nothing, and its time is launch latency"
+                how = (f"it computes nothing: the larger of its bytes over the memory rate, "
+                       f"{work.nbytes / roofline.MEMORY_BYTES_PER_S * 1e3:.7f} ms, and a bare "
+                       f"launch's device time, {work.launch_ms:.4f} ms; its own device time "
+                       f"{device[name]:.4f} ms, {100 * bound_ms / device[name]:.1f} % of it")
             else:
                 how = (f"{pipe} pipe; SASS per column {per_column['alu']:.1f} ALU, "
                        f"{per_column['fma']:.1f} FMA, {per_column['issue']:.1f} issued")

@@ -33,15 +33,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def cli_runs(tmp):
-    from chip_smoke import load_make_testdata
+    from bgsa_tpu_torch.benchutil import make_testdata
     from probe_banded import profile_cli
 
     print("== 1: -M 2 -I -3 -G -5, 20 x 150 bp vs 1,000,000 x 150 bp through the CLI")
-    make_testdata = load_make_testdata()
-    data_rng = np.random.default_rng(1)  # scripts/make_testdata.py's seed and order
-    qp, sp = os.path.join(tmp, "q.txt"), os.path.join(tmp, "s.txt")
-    make_testdata.write_lines(qp, 20, 150, data_rng)
-    make_testdata.write_lines(sp, 1_000_000, 150, data_rng)
+    qp, sp = make_testdata(tmp, 20, 1_000_000, 150)
     profile_cli(tmp, ["-q", qp, "-d", sp, "-M", "2", "-I", "-3", "-G", "-5"])
 
 

@@ -4,11 +4,13 @@ Run on a machine with a GPU: ``python -m pytest -m cuda tests/test_torch_cuda.py
 Integer scores: kernel and plain version must be equal (tolerance 0).
 """
 
+import statistics
+
 import numpy as np
 import pytest
 import torch
 
-from bgsa_tpu_torch.benchutil import filter_mix_dataset
+from bgsa_tpu_torch.benchutil import filter_mix_dataset, graph_times_ms
 from bgsa_tpu_torch import debug, pack, roofline
 from bgsa_tpu_torch.banded_pipeline import KERNELS, BandedEngine
 from bgsa_tpu_torch.ops import banded as bo
@@ -558,6 +560,101 @@ def test_kprint_probe_prints_and_copies(cuda, capfd):
     out = debug.kprint_probe(x)
     debug.flush_device_prints()
     assert debug.LAUNCHES == before + 1 and torch.equal(out, x)
+    assert "probe 0" in capfd.readouterr().out.splitlines()
+
+
+def test_empty_subjects_return_without_a_launch(cuda):
+    # every wrapper's S = 0 early return on the card: a (Q, 0) tensor
+    q = torch.zeros((2, 40), dtype=torch.int32, device=cuda)
+    none = torch.zeros((0, 40), dtype=torch.int32, device=cuda)
+    kw = dict(q_len=40, s_len=40, k=4)
+    n_sub = bp.packed_subbands(40, 40, 4)
+    calls = {
+        "myers_semiglobal": lambda: sg.myers_semiglobal(pack.pack_eq(none, 32), q, read_len=40),
+        "myers_global": lambda: mp.myers_global(pack.pack_eq(none, 31), q, read_len=40),
+        "bitpal": lambda: tb.bitpal(pack.pack_eq(none, 32), q, match=2, mismatch=-3, gap=-5,
+                                    read_len=40, word_bits=32),
+        "banded_stream": lambda: bo.banded_stream(pack.pack_banded_stream(none, 4, 40), q, **kw),
+        "banded": lambda: bo.banded(*pack.pack_banded(none[:, :10], 35, 40), q, q_len=40,
+                                    s_len=10, k=35),
+        "banded_stream_packed": lambda: bp.banded_stream_packed(
+            bp.pack_packed_streams(none, 4, 40, n_sub), q, **kw),
+        "banded_stream_pair": lambda: bpr.banded_stream_pair(
+            pack.pack_banded_stream(none, 4, 40), q, **kw),
+        "banded_packed_pair": lambda: bpp.banded_packed_pair(
+            bp.pack_packed_streams(none, 4, 40, n_sub), q, **kw),
+    }
+    for name, call in calls.items():
+        out = call()
+        assert tuple(out.shape) == (2, 0) and out.device.type == "cuda", name
+
+
+def test_graft_entry_on_the_card(cuda):
+    from bgsa_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry("cuda")
+    before = sg.LAUNCHES
+    got = fn(*args)
+    assert sg.LAUNCHES == before + 1 and got.device.type == "cuda"
+    cpu_fn, cpu_args = graft_entry.entry("cpu")
+    assert torch.equal(got.cpu(), cpu_fn(*cpu_args))
+    one = graft_entry.dryrun_multichip(1)  # the first visible card
+    two = graft_entry.dryrun_multichip(2, ["cuda:0"] * 2)
+    cpu = graft_entry.dryrun_multichip(2, ["cpu"] * 2)
+    for step in graft_entry.STEPS:
+        assert np.array_equal(two[step], cpu[step]), step
+    assert set(one) == set(graft_entry.STEPS)
+
+
+def test_a_failed_launch_raises_with_cudas_text(cuda):
+    with pytest.raises(RuntimeError, match="probe: kernel launch failed: CUDA error 1"):
+        build.load().check(1, "probe")  # cudaErrorInvalidValue
+    x = roofline.peak_inputs(3, 1024, "cuda")  # 3 chains: no instance
+    with pytest.raises(ValueError, match="takes 1, 2, 4, 8, 16 or 32 chains"):
+        roofline.int_peak(x, steps=1, unroll=1)
+
+
+def test_the_pipeline_on_the_card_writes_the_cpu_bytes(cuda, tmp_path):
+    from bgsa_tpu_torch.io import seqfile
+    from bgsa_tpu_torch.pipeline import local_devices, run_alignment
+
+    assert local_devices(0, "cuda") == [torch.device("cuda", i)
+                                        for i in range(torch.cuda.device_count())]
+    rng = np.random.default_rng(12)
+    q, d = str(tmp_path / "q.txt"), str(tmp_path / "d.txt")
+    seqfile.write_seq_file(q, rng.integers(0, 4, size=(3, 30)))
+    seqfile.write_seq_file(d, rng.integers(0, 5, size=(700, 40)))
+    out = {}
+    for device in ("cpu", "cuda"):
+        path = str(tmp_path / f"{device}.bin")
+        run_alignment(q, d, path, config=PipelineConfig(bucket_size=41 * 256), device=device)
+        with open(path, "rb") as f:
+            out[device] = f.read()
+    assert out["cpu"] == out["cuda"]
+
+
+def test_make_mesh_takes_every_card_by_default(cuda):
+    mesh = mesh_mod.make_mesh()
+    assert mesh.shape == (torch.cuda.device_count(), 1)
+    assert mesh.devices[0][0] == torch.device("cuda", 0)
+
+
+def test_the_reference_probes_copy_and_launch(cuda):
+    x = torch.arange(8 * 128, dtype=torch.int32, device=cuda).reshape(8, 128)
+    assert torch.equal(debug.copy_probe(x), x)
+    big = torch.arange(300 * 1024, dtype=torch.int32, device=cuda).reshape(300, 1024)
+    assert torch.equal(debug.copy_probe(big), big)  # past 1,024 blocks: the grid-stride loop
+    debug.empty_probe(cuda)
+    torch.cuda.synchronize()
+
+
+def test_the_fixture_and_probes_device_times(cuda, capfd):
+    x = torch.arange(8 * 128, dtype=torch.int32, device=cuda).reshape(8, 128)
+    times = {name: statistics.median(graph_times_ms(fn)) for name, fn in {
+        "kprint_probe": lambda: debug.kprint_probe(x), "copy_probe": lambda: debug.copy_probe(x),
+        "empty_probe": lambda: debug.empty_probe(cuda)}.items()}
+    debug.flush_device_prints()
+    assert all(0 < t < 5 for t in times.values()), times
     assert "probe 0" in capfd.readouterr().out.splitlines()
 
 

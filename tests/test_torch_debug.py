@@ -87,3 +87,31 @@ def test_main_without_a_gpu_exits_1(capsys):
         pytest.skip("a CUDA device is present")
     assert debug.main([]) == 1
     assert "--device cpu" in capsys.readouterr().err
+
+
+def test_the_reference_probes_plain_versions():
+    x = torch.arange(3 * 5, dtype=torch.int32).reshape(3, 5)
+    out = debug.copy_probe(x)
+    assert torch.equal(out, x) and out.data_ptr() != x.data_ptr()
+    assert debug.empty_probe("cpu") is None
+    with pytest.raises(ValueError):
+        debug.copy_probe(torch.zeros((8, 128), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        debug.empty_probe("meta")
+
+
+def test_the_reference_probes_are_built_and_declared():
+    import os
+    import re
+
+    from bgsa_tpu_torch.ops import build
+
+    with open(os.path.join(build.CSRC_DIR, "kprint_probe.cu")) as f:
+        text = f.read()
+    for fn, argc in (("bgsa_copy_probe", 4), ("bgsa_empty_probe", 1)):
+        params = re.search(rf"^int {fn}\(([^)]*)\)", text, re.M).group(1)
+        assert params.count(",") + 1 == argc == len(build._SIGNATURES[fn]), fn
+    # the copy is the fixture's loop without the print; the empty kernel is empty
+    body = text.split("copy_probe_kernel(", 1)[1].split("}\n", 1)[0]
+    assert "BGSA_KPRINT" not in body and "out[i] = x[i];" in body
+    assert "__global__ void empty_probe_kernel() {}" in text

@@ -106,6 +106,18 @@ def test_experiment_gates_fail_loudly(small_experiments, monkeypatch, capsys):
     assert "MISMATCH" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("what", ["pair", "probe"])
+def test_packed_experiment_gates_fail_loudly(small_experiments, monkeypatch, capsys, what):
+    from bgsa_tpu_torch.ops import banded_packed_pair
+
+    name = "banded_packed_pair" if what == "pair" else "banded_packed_probe"
+    real = getattr(banded_packed_pair, name)
+    monkeypatch.setattr(banded_packed_pair, name, lambda *a, **kw: real(*a, **kw) + 1)
+    assert exp_banded_packed_pair.main(["mix", "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert "MISMATCH" in err and (name + (" " if what == "probe" else " != ")) in err
+
+
 def test_experiment_shapes_are_the_jax_scripts():
     # scripts/exp_banded_pair.py:210-216 and exp_banded_packed_pair.py:158-162
     assert (exp_banded_pair.SEED, exp_banded_pair.QUERIES, exp_banded_pair.SUBJECTS,

@@ -10,6 +10,7 @@ prints them, and counts one column of it per pipe.
 
 import importlib.util
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -183,11 +184,13 @@ def test_live_columns_from_the_plain_version():
     assert all(a >= b for a, b in zip(live, live[1:]))
 
 
-@pytest.mark.parametrize("bad", ["rank", "dtype", "rows", "unroll"])
+@pytest.mark.parametrize("bad", ["rank", "dtype", "rows", "unroll", "device"])
 def test_int_peak_rejects_bad_inputs(bad):
     x = torch.ones((3, 16), dtype=torch.int32)
     kw = dict(steps=1, unroll=1)
-    if bad == "rank":
+    if bad == "device":
+        x = x.to("meta")
+    elif bad == "rank":
         x = x[0]
     elif bad == "dtype":
         x = x.long()
@@ -427,6 +430,24 @@ def test_sass_nested_loop_counts_one_trip():
     assert per == {"issue": 5, "alu": 2, "fma": 0}
 
 
+def test_sass_without_a_loop_that_loads_the_anchor_raises():
+    body = [("", "LOP3.LUT R1, R2, R3, RZ, 0xc0, !PT", "c"), ("", "IADD3 R2, R2, 0x1, RZ"),
+            ("@!P0", "BRA @c"), ("", "EXIT")]
+    ins = roofline.sass_functions(listing("_ZN6bitpal13bitpal_kernelIELi32ELi0EEEv", body))
+    with pytest.raises(ValueError, match="no loop loads"):
+        roofline.column_instructions(roofline.find_function(ins, "ELi32ELi0EE"),
+                                     roofline.SASS_SPECS["bitpal"])
+
+
+def test_io_bytes_and_no_cuobjdump(monkeypatch, tmp_path):
+    import torch.utils.cpp_extension as ext
+
+    assert roofline.io_bytes(torch.zeros(3, 4, dtype=torch.int32),
+                             torch.zeros(5, dtype=torch.int8)) == 53
+    monkeypatch.setattr(ext, "CUDA_HOME", str(tmp_path))  # a toolkit without cuobjdump
+    assert roofline.sass_text("lib.so") is None
+
+
 def test_sass_tiled_kernel_counts_one_word_column():
     # bitpal_tiled_kernel: a word loop (planes loaded and stored) around the
     # column loop (the code from shared memory, the carry slot loaded and
@@ -605,3 +626,31 @@ def test_sass_stream_pair_kernel_counts_pair_columns():
     # the whole batches: 32 x 8 + 15 (the window, once a batch for both
     # chains) + 3 issued over 32 pair columns (ALU: 32 x 2 x (LEA, SHF) + ISETP)
     assert per == {"issue": (256 + 15 + 3) / 32, "alu": (128 + 1) / 32, "fma": 0}
+
+
+def load_chip_smoke():
+    if "chip_smoke" in sys.modules:
+        return sys.modules["chip_smoke"]
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = mod  # its dataclasses look their module up by name
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("launch_ms, nbytes, by", [
+    (0.0011, None, "launch"),  # the kprint row: an empty launch outlasts its 8 KB
+    (0.0, None, "bytes"),  # no launch floor measured
+    (0.0011, 3.35e7, "bytes"),  # bytes that outlast the launch
+])
+def test_kernel_bound_of_a_row_that_computes_nothing(launch_ms, nbytes, by):
+    smoke = load_chip_smoke()
+    nbytes = smoke.KPRINT_BYTES if nbytes is None else nbytes
+    work = smoke.Work(None, {}, 0, nbytes, None, launch_ms=launch_ms)
+    bound_ms, bound_by, pipe, per_column, share = smoke.kernel_bound(
+        "kprint_probe", 0.05, work, {}, None)
+    assert bound_by == by
+    assert bound_ms == pytest.approx(max(nbytes / roofline.MEMORY_BYTES_PER_S * 1e3, launch_ms))
+    assert (pipe, per_column, share) == (None, None, None)
+    # the kernels line's bound_by keeps its two words
+    assert smoke.LINE_BOUND_BY[bound_by] == ("bytes" if by == "bytes" else "operations")
