@@ -24,6 +24,7 @@ from . import pack
 from .banded_pipeline import BandedEngine
 from .pipeline import Engine, PipelineConfig
 from .schemes import Mode, Scoring, normalize
+from .stats import Span
 
 
 def encode_sequences(seqs, *, name: str = "sequences") -> np.ndarray:
@@ -77,8 +78,10 @@ def align(
         and queries.ndim == 1
         and queries.dtype.kind in "iu"  # a 1-D array of strings is multi-query
     )
-    qcodes = encode_sequences(queries, name="queries")
-    scodes = encode_sequences(subjects, name="subjects")
+    with Span("encode"):
+        qcodes = encode_sequences(queries, name="queries")
+    with Span("encode"):
+        scodes = encode_sequences(subjects, name="subjects")
     config = config or PipelineConfig()
     if k is not None:
         engine = BandedEngine(k, config, device, devices=devices)
@@ -88,5 +91,7 @@ def align(
     pad = -real % engine.n_shards
     if pad:  # code 0, not 'N': keeps N-free batches on the 2-bit transport
         scodes = np.concatenate([scodes, np.zeros((pad, scodes.shape[1]), np.int32)])
-    out = np.asarray(engine.scores(qcodes, scodes))[:, :real]
+    dev_scores = engine.scores(qcodes, scodes)
+    with Span("fetch"):
+        out = np.asarray(dev_scores)[:, :real]
     return out[0] if single else out

@@ -21,6 +21,7 @@ from .ops import banded as banded_ops
 from .ops import banded_packed, build
 from .pack import PAD_CODE
 from .pipeline import Engine, PipelineConfig, run_bucketed
+from .stats import Span
 
 
 # route name -> (kernel wrapper, plain torch version). A wrapper launches
@@ -99,8 +100,11 @@ class BandedEngine(Engine):
         q_len, (S, s_len) = queries.shape[1], codes.shape
         name = self.route(q_len, s_len)
         kernel = KERNELS[name][0]
-        args = self.kernel_args(name, codes, q_len)
-        return kernel(*args, queries, q_len=q_len, s_len=s_len, k=self.k)[:, :S]
+        with Span("stream_pack"):
+            args = self.kernel_args(name, codes, q_len)
+        with Span("kernel"):
+            # a view: the engine's narrowing copy (bgsa.narrow) applies it
+            return kernel(*args, queries, q_len=q_len, s_len=s_len, k=self.k)[:, :S]
 
 
 def run_banded(
@@ -126,7 +130,8 @@ def run_banded(
     ``shard=(host_id, n_hosts)`` writes this host's raw shard file and
     returns (stats, ShardMeta) for ``parallel.multihost.merge_shards``.
     """
-    engine = BandedEngine(threshold, config, device, devices=devices)
+    with Span("engine"):
+        engine = BandedEngine(threshold, config, device, devices=devices)
     return run_bucketed(
         engine, query_path, db_path, result_path, config,
         shard=shard, shard_ratios=shard_ratios, resume=resume,

@@ -15,13 +15,16 @@ Reproduces the reference's bucketing semantics exactly
 The reference's V_NUM is 1..16 depending on port; ours is the TPU lane pad
 (default 128). Pad choice does not affect converted output.
 
-The port's own copy of ``bgsa_tpu.io.seqfile``, same behaviour.
+The port's own copy of ``bgsa_tpu.io.seqfile``, same behaviour; its
+``DatabaseReader`` can also bill its read and encode seconds to a run's
+``RunStats``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 
@@ -71,11 +74,16 @@ class Bucket:
 
 
 class DatabaseReader:
-    """Iterates subject buckets with reference-compatible boundaries."""
+    """Iterates subject buckets with reference-compatible boundaries. Given
+    ``stats`` (a ``RunStats``), iterating adds its seconds in file reads and
+    the newline check to ``stats.reader_read_time`` and in the 'N' pads and
+    encoding to ``stats.reader_encode_time``."""
 
-    def __init__(self, path: str, bucket_size: int = DEFAULT_BUCKET_SIZE, v_num: int = 128):
+    def __init__(self, path: str, bucket_size: int = DEFAULT_BUCKET_SIZE, v_num: int = 128,
+                 stats=None):
         self.path = path
         self.v_num = v_num
+        self.stats = stats
         self.length = detect_line_length(path)
         self.stride = self.length + 1
         self.total_size = os.path.getsize(path)
@@ -124,6 +132,7 @@ class DatabaseReader:
         remaining = self.total_count
         with open(self.path, "rb") as f:
             for b in range(self.bucket_count):
+                t0 = time.perf_counter()
                 take = min(self.seqs_per_bucket, remaining)
                 remaining -= take
                 raw = f.read(take * self.stride)
@@ -143,13 +152,18 @@ class DatabaseReader:
                         f"{self.length} bp (ragged line near sequence "
                         f"{b * self.seqs_per_bucket + bad})"
                     )
+                t1 = time.perf_counter()
                 arr = full[:, : self.length]
                 extra = 0
                 if b == self.bucket_count - 1 and take % self.v_num:
                     extra = self.v_num - take % self.v_num
                     pad = np.full((extra, self.length), ord("N"), np.uint8)
                     arr = np.concatenate([arr, pad])
-                yield Bucket(pack.encode_ascii(arr), take + extra, extra)
+                codes = pack.encode_ascii(arr)
+                if self.stats is not None:
+                    self.stats.reader_read_time += t1 - t0
+                    self.stats.reader_encode_time += time.perf_counter() - t1
+                yield Bucket(codes, take + extra, extra)
 
 
 def read_queries(path: str) -> np.ndarray:

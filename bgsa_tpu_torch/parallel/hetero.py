@@ -65,7 +65,7 @@ def run_hetero(
     v_num = config.v_num
     t0 = time.perf_counter()
     queries = seqfile.read_queries(query_path)
-    db = seqfile.DatabaseReader(db_path, config.bucket_size, v_num)
+    db = seqfile.DatabaseReader(db_path, config.bucket_size, v_num, stats)
     stats.read_time += time.perf_counter() - t0
     stats.query_count, stats.query_len = queries.shape
     stats.subject_len = db.length
@@ -143,6 +143,7 @@ def run_hetero(
                 codes, n_shards=engines[d].n_shards, threads=_pack_threads(config)
             )
             stats.pack_time += time.perf_counter() - t0
+            stats.scored_rows += codes.shape[0]
             slices[d] = (transport, packed, codes.shape[1])
 
         # One worker per device: the reference's `omp parallel

@@ -1,15 +1,21 @@
-"""Run statistics and GCUPS accounting.
+"""Run statistics and GCUPS accounting, and the spans that bill them.
 
 Mirrors the reference's end-of-run report (``cal_cpu.c:459-475``):
 ``cal GCUPS`` counts kernel time only, ``Total GCUPS`` is end-to-end, both
 with cells = ref_len * ref_count * read_len * subject_count.
 
-The port's own copy of ``bgsa_tpu.stats``, same behaviour.
+The port's own copy of ``bgsa_tpu.stats``: the same fields, JSON and
+report, plus four fields the reference lacks (the reader wait, the reader
+thread's read and encode seconds, the rows scored) and ``Span``, which
+times a phase on the host clock and names it in a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+
+import torch
 
 
 @dataclasses.dataclass
@@ -31,6 +37,17 @@ class RunStats:
     # -D mode: the ratio schedule actually used, one row per computed bucket
     # (the reference prints device_compute_ratio per round, global.c:66-68).
     dynamic_ratios: list = dataclasses.field(default_factory=list)
+    # The main thread's wait for the reader thread's next bucket.
+    read_wait_time: float = 0.0
+    # The database reader's wall seconds (waits for the interpreter lock
+    # included): file reads and the newline check; 'N' pads and encoding.
+    # In run_bucketed only the reader thread writes them, and the main
+    # thread reads them after joining it.
+    reader_read_time: float = 0.0
+    reader_encode_time: float = 0.0
+    # Subject rows handed to the engine, once per database bucket: the real
+    # subjects plus the 'N' lane pads and run_bucketed's shape pad.
+    scored_rows: int = 0
 
     @property
     def cells(self) -> int:
@@ -67,3 +84,37 @@ class RunStats:
             f"Total GCUPS is {self.gcups(self.total_time):.2f}",
         ]
         return "\n".join(lines)
+
+
+class Span:
+    """One phase of a run, named and timed at one boundary: a ``with`` block
+    that opens ``torch.profiler.record_function("bgsa.<name>")``, so that a
+    profiler trace names the phase on the clock of its device activity, and
+    adds the block's host seconds to ``stats.<field>`` where both are given.
+    ``ids`` (``bucket=``, ``query_bucket=``) go into the range's ``args``,
+    the same for every span of one bucket. ``seconds`` holds the block's
+    time once it has exited."""
+
+    __slots__ = ("name", "args", "stats", "field", "seconds", "_range", "_t0")
+
+    def __init__(self, name: str, stats: RunStats | None = None, field: str | None = None,
+                 **ids):
+        self.name = "bgsa." + name
+        self.args = " ".join(f"{k}={v}" for k, v in ids.items()) or None
+        self.stats, self.field = stats, field
+        self.seconds = 0.0
+
+    def __enter__(self) -> Span:
+        self._range = torch.profiler.record_function(self.name, self.args)
+        # Read the clock just before the range's enter and exit ops: each
+        # takes its time stamp as it drops the interpreter lock, and may wait
+        # for the lock on its way back (held by the reader thread, say).
+        self._t0 = time.perf_counter()
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.seconds = time.perf_counter() - self._t0
+        self._range.__exit__(*exc)
+        if self.stats is not None:
+            setattr(self.stats, self.field, getattr(self.stats, self.field) + self.seconds)

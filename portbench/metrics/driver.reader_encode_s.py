@@ -1,0 +1,10 @@
+"""The reader thread's 'N' pads and ASCII encoding
+(RunStats.reader_encode_time, wall seconds) per traced job; None where a
+job's stats lack the field."""
+
+
+def read(rec):
+    stats = [j["stats"] for j in rec.jobs if j.get("stats")]
+    if not stats or any("reader_encode_time" not in s for s in stats):
+        return None
+    return sum(s["reader_encode_time"] for s in stats) / len(stats)

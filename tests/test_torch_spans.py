@@ -1,0 +1,173 @@
+"""The port's spans and run counters on the CPU.
+
+Every phase of the bucketed driver and of the engines appears in a
+``torch.profiler`` trace once per bucket or query bucket, the engines'
+spans inside ``bgsa.dispatch``; each driver span's summed duration agrees
+with the ``RunStats`` field it bills; the reader wait, the reader's own
+seconds and the rows scored are counted; ``align()`` names its phases.
+"""
+
+import gc
+import json
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from bgsa_tpu_torch import Scoring, align
+from bgsa_tpu_torch.banded_pipeline import run_banded
+from bgsa_tpu_torch.io import seqfile
+from bgsa_tpu_torch.pipeline import PipelineConfig, run_alignment
+from bgsa_tpu_torch.stats import RunStats, Span
+
+LEN = 24
+QUERIES = 150  # two query buckets: 100 (REF_BUCKET_COUNT) and 50
+SUBJECTS = 600  # buckets of 256, 256 and 88 + 40 'N' lane pads, shape-padded to 256
+CONFIG = PipelineConfig(bucket_size=256 * (LEN + 1))
+BUCKETS, QUERY_BUCKETS, BUCKET_ROWS = 3, 2, 256
+
+RUNS = {
+    "myers": lambda q, d, r: run_alignment(q, d, r, config=CONFIG, device="cpu"),
+    "bitpal": lambda q, d, r: run_alignment(q, d, r, Scoring(2, -3, -5), config=CONFIG,
+                                            device="cpu"),
+    "banded": lambda q, d, r: run_banded(q, d, r, 4, CONFIG, device="cpu"),
+}
+PACKER = {"myers": "eq_pack", "bitpal": "eq_pack", "banded": "stream_pack"}
+ENGINE_SPANS = ("upload", "unpack", "kernel", "narrow")
+# driver span -> the RunStats field it bills
+BILLS = {"open": "read_time", "warm": "compile_time", "compile": "compile_time",
+         "read_wait": "read_wait_time", "transport_pack": "pack_time", "dispatch": "cal_time",
+         "fetch": "cal_time", "write": "write_time"}
+
+
+def write_inputs(directory, queries=QUERIES):
+    rng = np.random.default_rng(16)
+    paths = (str(directory / "q.txt"), str(directory / "d.txt"))
+    seqfile.write_seq_file(paths[0], rng.integers(0, 4, (queries, LEN), np.uint8))
+    seqfile.write_seq_file(paths[1], rng.integers(0, 4, (SUBJECTS, LEN), np.uint8))
+    return paths
+
+
+def bgsa_events(prof, path) -> list:
+    """(name without "bgsa.", start us, end us) of each bgsa span in the trace."""
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"][5:], e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("ph") == "X" and e.get("name", "").startswith("bgsa.")]
+
+
+@pytest.fixture(scope="module", params=sorted(RUNS))
+def traced(request, tmp_path_factory):
+    """(family, RunStats, spans, database path) of one traced multi-bucket run."""
+    tmp = tmp_path_factory.mktemp(request.param)
+    q, d = write_inputs(tmp)
+    # A span reads the clock a few microseconds before its range's time
+    # stamp. A collection of this process's heap (torch and jax loaded), or
+    # the interpreter handing its lock to the reader thread for a switch
+    # interval, takes milliseconds, and one that lands in between parts the
+    # two clocks by that much; neither is what this module tests.
+    interval = sys.getswitchinterval()
+    gc.disable()
+    sys.setswitchinterval(1.0)
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            stats = RUNS[request.param](q, d, str(tmp / "r.bin"))
+    finally:
+        sys.setswitchinterval(interval)
+        gc.enable()
+    return request.param, stats, bgsa_events(prof, tmp / "trace.json"), d
+
+
+def test_every_span_once_per_bucket_or_query_bucket(traced):
+    family, _, spans, _ = traced
+    counts = {}
+    for name, _, _ in spans:
+        counts[name] = counts.get(name, 0) + 1
+    per_dispatch = BUCKETS * QUERY_BUCKETS
+    want = {"engine": 1, "open": 1, "warm": 1, "close": 1,
+            "read_wait": BUCKETS + 1,  # the last get() takes the end-of-file mark
+            "transport_pack": BUCKETS, "compile": BUCKETS,
+            "dispatch": per_dispatch, "fetch": per_dispatch, "write": per_dispatch,
+            PACKER[family]: per_dispatch, **{n: per_dispatch for n in ENGINE_SPANS}}
+    assert counts == want
+
+
+def test_engine_spans_nest_in_dispatch(traced):
+    family, _, spans, _ = traced
+    dispatches = [(t0, t1) for name, t0, t1 in spans if name == "dispatch"]
+    inner = [(t0, t1) for name, t0, t1 in spans if name in ENGINE_SPANS + (PACKER[family],)]
+    assert len(inner) == 5 * len(dispatches)
+    for t0, t1 in inner:
+        assert any(d0 <= t0 and t1 <= d1 for d0, d1 in dispatches)
+
+
+def test_driver_spans_match_their_run_stats_fields(traced):
+    _, stats, spans, _ = traced
+    for field in set(BILLS.values()):
+        mine = [(t1 - t0) * 1e-6 for name, t0, t1 in spans if BILLS.get(name) == field]
+        assert mine, field
+        assert abs(sum(mine) - getattr(stats, field)) <= 2e-3 * len(mine), field
+
+
+def test_scored_rows_match_the_bucket_layout(traced):
+    _, stats, _, d = traced
+    db = seqfile.DatabaseReader(d, CONFIG.bucket_size, CONFIG.v_num)
+    assert db.bucket_counts() == [(256, 0), (256, 0), (128, 40)]
+    assert stats.subject_count == SUBJECTS
+    # the tail's 88 subjects and 40 'N' lane pads, shape-padded to the full bucket
+    assert stats.scored_rows == BUCKETS * db.seqs_per_bucket == BUCKETS * BUCKET_ROWS
+    assert stats.reader_read_time > 0 and stats.reader_encode_time > 0
+    assert stats.reader_read_time + stats.reader_encode_time < stats.total_time
+    written = json.loads(stats.to_json())  # what --stats-json writes
+    for key in ("read_wait_time", "reader_read_time", "reader_encode_time", "scored_rows"):
+        assert written[key] == getattr(stats, key)
+
+
+@pytest.mark.parametrize("family", sorted(RUNS))
+def test_read_wait_bills_a_slow_reader(tmp_path, monkeypatch, family):
+    """With the reader slowed by 50 ms a bucket, the main thread waits for
+    what its own work does not cover: the first bucket whole, each later one
+    less the main thread's work on the bucket before."""
+    q, d = write_inputs(tmp_path, queries=1)
+    iterate = seqfile.DatabaseReader.__iter__
+
+    def slow(self):
+        for bucket in iterate(self):
+            time.sleep(0.05)
+            yield bucket
+
+    monkeypatch.setattr(seqfile.DatabaseReader, "__iter__", slow)
+    stats = RUNS[family](q, d, str(tmp_path / "r.bin"))
+    own = stats.pack_time + stats.cal_time + stats.write_time + stats.compile_time
+    assert stats.read_wait_time >= 0.05 * BUCKETS - own - 0.01
+    assert stats.read_time + stats.read_wait_time + own <= stats.total_time
+    if family == "myers":  # a few ms of the main thread's work a bucket
+        assert stats.read_wait_time >= 0.04 * (BUCKETS - 1)
+
+
+@pytest.mark.parametrize("k", [None, 3], ids=["myers", "banded"])
+def test_align_names_its_phases(tmp_path, k):
+    rng = np.random.default_rng(3)
+    subjects = rng.integers(0, 4, (70, 20)).astype(np.int32)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = align(subjects[:3], subjects, k=k, device="cpu")
+    names = [name for name, _, _ in bgsa_events(prof, tmp_path / "trace.json")]
+    assert got.shape == (3, 70)
+    assert names.count("encode") == 2
+    for name in ("transport_pack", "dispatch", "fetch", "upload", "unpack", "kernel", "narrow"):
+        assert names.count(name) == 1, name
+    assert names.count("stream_pack" if k else "eq_pack") == 1
+
+
+def test_span_adds_its_seconds_to_its_field():
+    stats = RunStats(pack_time=1.0)
+    with Span("transport_pack", stats, "pack_time", bucket=2) as span:
+        time.sleep(0.01)
+    assert span.name == "bgsa.transport_pack" and span.args == "bucket=2"
+    assert span.seconds >= 0.01 and stats.pack_time == 1.0 + span.seconds
+    with Span("close") as bare:
+        pass
+    assert bare.args is None and bare.seconds >= 0
