@@ -241,7 +241,7 @@ def convert_result(result_path: str, out_path: str, write_dtype=np.int16,
                    ref_bucket_count: int = REF_BUCKET_COUNT) -> None:
     """Reference-identical ``convert -r``: blocked binary -> text scores.
 
-    Uses the native C++ walker (native/bgsa_native.cpp) when available — the
+    Uses the native C++ walker (csrc/bgsa_native.cpp) when available — the
     per-line Python loop is the bottleneck at tens of millions of scores.
     """
     import os

@@ -15,9 +15,12 @@ Reproduces the reference's bucketing semantics exactly
 The reference's V_NUM is 1..16 depending on port; ours is the TPU lane pad
 (default 128). Pad choice does not affect converted output.
 
-The port's own copy of ``bgsa_tpu.io.seqfile``, same behaviour; its
-``DatabaseReader`` can also bill its read and encode seconds to a run's
-``RunStats``.
+The port's own copy of ``bgsa_tpu.io.seqfile``, same behaviour. Both
+readers check the newline column and encode in one native pass over the raw
+line bytes (``native.encode_lines``, the interpreter lock released), or with
+numpy where the native library is missing. ``DatabaseReader`` can also bill
+its read and encode seconds, and the buckets the native pass encoded, to a
+run's ``RunStats``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import time
 
 import numpy as np
 
-from .. import pack
+from .. import native, pack
 
 DEFAULT_BUCKET_SIZE = 114857600  # READ_BUCKET_SIZE, reference config.h
 REF_BUCKET_COUNT = 100  # queries per compute tile, reference config.h
@@ -64,6 +67,31 @@ def detect_line_length(path: str) -> int:
     return length
 
 
+def encode_lines(raw: bytes, rows: int, length: int, pad_rows: int = 0):
+    """(codes, bad, native) of the first ``rows`` lines of ``length`` bytes
+    in ``raw``, each followed by its newline: ``codes`` the (rows +
+    ``pad_rows``, length) symbol codes, the last ``pad_rows`` all 'N';
+    ``bad`` the first line whose newline column holds another byte (codes
+    then None or incomplete), or -1; ``native`` whether the native library
+    did it."""
+    buf = np.frombuffer(raw, np.uint8)
+    got = native.encode_lines(buf, rows, length, length + 1, pad_rows)
+    if got is not None:
+        return (*got, True)
+    full = buf[: rows * (length + 1)].reshape(rows, length + 1)
+    # The size checks are modular arithmetic only — a ragged file whose
+    # total size happens to line up (e.g. one long and one short line)
+    # would misparse silently, shifting newlines into sequences (code 0).
+    # The newline column is dropped anyway; validating it is one compare.
+    nl_col = full[:, length]
+    if not (nl_col == ord("\n")).all():
+        return None, int(np.argmax(nl_col != ord("\n"))), False
+    arr = full[:, :length]
+    if pad_rows:
+        arr = np.concatenate([arr, np.full((pad_rows, length), ord("N"), np.uint8)])
+    return pack.encode_ascii(arr), -1, False
+
+
 @dataclasses.dataclass
 class Bucket:
     """One database bucket of equal-length subjects."""
@@ -75,9 +103,10 @@ class Bucket:
 
 class DatabaseReader:
     """Iterates subject buckets with reference-compatible boundaries. Given
-    ``stats`` (a ``RunStats``), iterating adds its seconds in file reads and
-    the newline check to ``stats.reader_read_time`` and in the 'N' pads and
-    encoding to ``stats.reader_encode_time``."""
+    ``stats`` (a ``RunStats``), iterating adds its seconds in file reads to
+    ``stats.reader_read_time``, in the newline check, 'N' pads and encoding
+    to ``stats.reader_encode_time``, and each bucket the native pass encoded
+    to ``stats.reader_native_buckets``."""
 
     def __init__(self, path: str, bucket_size: int = DEFAULT_BUCKET_SIZE, v_num: int = 128,
                  stats=None):
@@ -138,31 +167,21 @@ class DatabaseReader:
                 raw = f.read(take * self.stride)
                 if len(raw) < take * self.stride:  # missing final newline
                     raw = raw + b"\n"
-                full = np.frombuffer(raw, np.uint8).reshape(take, self.stride)
-                # The size check in __init__ is modular arithmetic only — a
-                # ragged file whose total size happens to line up (e.g. one
-                # long and one short line) would misparse silently, shifting
-                # newlines into sequences (code 0). The newline column is
-                # dropped anyway; validating it is one vectorized compare.
-                nl_col = full[:, self.length]
-                if not (nl_col == ord("\n")).all():
-                    bad = int(np.argmax(nl_col != ord("\n")))
+                t1 = time.perf_counter()
+                extra = 0
+                if b == self.bucket_count - 1 and take % self.v_num:
+                    extra = self.v_num - take % self.v_num
+                codes, bad, native_pass = encode_lines(raw, take, self.length, extra)
+                if bad >= 0:
                     raise ValueError(
                         f"{self.path}: not fixed-length lines of "
                         f"{self.length} bp (ragged line near sequence "
                         f"{b * self.seqs_per_bucket + bad})"
                     )
-                t1 = time.perf_counter()
-                arr = full[:, : self.length]
-                extra = 0
-                if b == self.bucket_count - 1 and take % self.v_num:
-                    extra = self.v_num - take % self.v_num
-                    pad = np.full((extra, self.length), ord("N"), np.uint8)
-                    arr = np.concatenate([arr, pad])
-                codes = pack.encode_ascii(arr)
                 if self.stats is not None:
                     self.stats.reader_read_time += t1 - t0
                     self.stats.reader_encode_time += time.perf_counter() - t1
+                    self.stats.reader_native_buckets += native_pass
                 yield Bucket(codes, take + extra, extra)
 
 
@@ -178,16 +197,13 @@ def read_queries(path: str) -> np.ndarray:
     raw = raw.rstrip(b"\n") + b"\n"
     if len(raw) % stride:
         raise ValueError(f"{path}: not fixed-length lines of {length} bp")
-    count = len(raw) // stride
-    full = np.frombuffer(raw[: count * stride], np.uint8).reshape(count, stride)
-    nl_col = full[:, length]
-    if not (nl_col == ord("\n")).all():  # ragged sizes can still line up
-        bad = int(np.argmax(nl_col != ord("\n")))
+    codes, bad, _ = encode_lines(raw, len(raw) // stride, length)
+    if bad >= 0:  # ragged sizes can still line up
         raise ValueError(
             f"{path}: not fixed-length lines of {length} bp "
             f"(ragged line near sequence {bad})"
         )
-    return pack.encode_ascii(full[:, :length])
+    return codes
 
 
 def write_seq_file(path: str, codes_or_ascii: np.ndarray) -> None:

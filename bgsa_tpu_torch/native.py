@@ -1,12 +1,14 @@
-"""ctypes loader for the native host library (``native/bgsa_native.cpp``).
+"""ctypes loader for the native host library (``csrc/bgsa_native.cpp``).
 
-The port's own copy of ``bgsa_tpu.native``, same behaviour, with one
-difference: the library is built into the checkout's ``build/bgsa_tpu_torch/``
-(gitignored), beside the CUDA kernel libraries, named by a hash of the
-source and the flags, instead of a cache under the home directory. It is
-built on first use (g++ -O3 -shared); every caller has a pure-Python
-fallback, so a missing toolchain only costs speed. These are host packers
-and the result converter, not device kernels.
+The port's own copy of ``bgsa_tpu.native``, same behaviour, with two
+differences: it builds the port's copy of the source, which adds the
+database reader's line encode (``encode_lines``); and the library is built
+into the checkout's ``build/bgsa_tpu_torch/`` (gitignored), beside the CUDA
+kernel libraries, named by a hash of the source and the flags, instead of a
+cache under the home directory. It is built on first use (g++ -O3 -shared);
+every caller has a pure-Python fallback, so a missing toolchain only costs
+speed. These are the reader's encode, host packers and the result
+converter, not device kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ _lib = None
 _tried = False
 
 _PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(_PACKAGE_DIR), "native", "bgsa_native.cpp")
+_SRC = os.path.join(_PACKAGE_DIR, "csrc", "bgsa_native.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "bgsa_tpu_torch")
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
@@ -91,6 +93,11 @@ def get_lib():
         lib.bgsa_two_bit_pack.restype = None
         lib.bgsa_nibble_pack.restype = None
         lib.bgsa_count_n.restype = ctypes.c_int64
+        lib.bgsa_encode_lines.restype = ctypes.c_int64
+        lib.bgsa_encode_lines.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+        ]
         _lib = lib
         return _lib
 
@@ -175,3 +182,24 @@ def pack_eq(codes: np.ndarray, word_bits: int):
         ctypes.c_int32(word_bits), eq.ctypes.data_as(ctypes.c_void_p), ctypes.c_int32(W),
     )
     return eq
+
+
+def encode_lines(raw: np.ndarray, rows: int, length: int, stride: int, pad_rows: int = 0):
+    """Native encode of ``rows`` lines of ``length`` ASCII bytes, ``stride``
+    bytes apart in the flat uint8 buffer ``raw``, to (rows + pad_rows,
+    length) symbol codes (``pack.MAPPING``), the ``pad_rows`` last all 4
+    ('N'). Returns (codes, the first row whose byte at column ``length`` is
+    not a newline, or -1), or None if unavailable. One pass, run with the
+    interpreter lock released."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    raw = np.ascontiguousarray(raw, dtype=np.uint8).reshape(-1)
+    if min(rows, pad_rows) < 0 or length < 1 or stride <= length:
+        raise ValueError(f"bad line geometry: rows {rows}, pad_rows {pad_rows}, "
+                         f"length {length}, stride {stride}")
+    if rows and raw.size < (rows - 1) * stride + length + 1:
+        raise ValueError(f"{raw.size} bytes hold fewer than {rows} lines of {stride}")
+    out = np.empty((rows + pad_rows, length), np.uint8)
+    bad = lib.bgsa_encode_lines(raw.ctypes.data, rows, length, stride, out.ctypes.data, pad_rows)
+    return out, bad
