@@ -19,7 +19,9 @@ INT32_MIN``), and popcount is SWAR (torch has none). ``bitpal`` dispatches
 on the tensor's device: the plain version for a CPU tensor, the
 hand-written kernel (``csrc/bitpal.cu``, built per scheme) for a CUDA
 tensor, counting launches in ``LAUNCHES``. Nothing is routed to the plain
-version on the card.
+version on the card. ``launch`` names each launch's route in a profiler
+range, ``bgsa.bitpal_regs`` or ``bgsa.bitpal_tiled``, and adds its
+word-columns and scratch to the caller's ``LaunchCounts``.
 
 Past the register bound the kernel runs word-major over tiles of query
 columns and passes each column's cross-word carries to the next word in
@@ -39,6 +41,7 @@ import dataclasses
 import torch
 
 from ..pack import CHAR_NUM, word_count
+from ..stats import Span
 
 WORD_BITS = 31
 INT32_MIN = -(1 << 31)
@@ -78,6 +81,17 @@ class BitpalParams:
     @property
     def values(self):
         return range(self.minv, self.maxv + 1)
+
+
+@dataclasses.dataclass
+class LaunchCounts:
+    """What a caller's BitPAl launches ran: word-columns (Q x m x W x S) in
+    all and on the tiled kernel, and the largest device scratch that one
+    launch allocated, in bytes."""
+
+    word_columns: int = 0
+    tiled_word_columns: int = 0
+    scratch_peak_bytes: int = 0
 
 
 def word_mask(word_bits: int) -> int:
@@ -438,12 +452,14 @@ def bitpal_tiled_ref(eq, queries, *, match: int, mismatch: int, gap: int, read_l
 
 
 def bitpal(eq, queries, *, match: int, mismatch: int, gap: int, read_len: int,
-           factor: int = 1, semi_global: bool = False, word_bits: int = WORD_BITS):
+           factor: int = 1, semi_global: bool = False, word_bits: int = WORD_BITS,
+           counts: LaunchCounts | None = None):
     """(5, W, S) int32 Eq words x (Q, m) query codes -> (Q, S) int32 scores.
 
     CPU tensors run the plain version; CUDA tensors launch the scheme's
-    kernel (built on first use, and raising if it cannot build or launch).
-    Query codes outside 0..4 match nothing in the kernel.
+    kernel (built on first use, and raising if it cannot build or launch),
+    adding to ``counts`` where it is given. Query codes outside 0..4 match
+    nothing in the kernel.
     """
     p = BitpalParams(match, mismatch, gap)
     _check(eq, queries, read_len, word_bits)
@@ -452,20 +468,21 @@ def bitpal(eq, queries, *, match: int, mismatch: int, gap: int, read_len: int,
         return bitpal_ref(eq, queries, match=match, mismatch=mismatch, gap=gap, **kw)
     if eq.device.type != "cuda":
         raise ValueError(f"no bitpal for device {eq.device}")
-    out = launch("bitpal", p, len(p.values), eq, queries, **kw)
+    out = launch("bitpal", p, len(p.values), eq, queries, counts=counts, **kw)
     global LAUNCHES
     LAUNCHES += 1
     return out
 
 
 def launch(kernel: str, p: BitpalParams, planes: int, eq, queries, *, read_len, factor,
-           semi_global, word_bits):
+           semi_global, word_bits, counts: LaunchCounts | None = None):
     """Launch the BitPAl kernel ``kernel`` ("bitpal" or "bitpal_packed") of
     scheme ``p`` on CUDA tensors. Its state of ``planes`` planes per word
     lives in registers up to the library's ``reg_words`` words; past it the
     tiled kernel holds one word's planes, and keeps them between tiles in a
     (planes, W, Q, S) device scratch allocated here when the query spans
-    more than one tile."""
+    more than one tile. The launch runs in a ``bgsa.bitpal_regs`` or
+    ``bgsa.bitpal_tiled`` range and is added to ``counts``."""
     from . import build
 
     kernels = build.load_scheme(kernel, p.match, p.mismatch, p.gap)
@@ -476,10 +493,11 @@ def launch(kernel: str, p: BitpalParams, planes: int, eq, queries, *, read_len, 
     out = torch.empty((Q, S), dtype=torch.int32, device=eq.device)
     if Q == 0 or S == 0:
         return out
+    tiled = W > kernels.reg_words
     scratch = None
-    if W > kernels.reg_words and m > kernels.tile_columns:
+    if tiled and m > kernels.tile_columns:
         scratch = torch.empty((planes, W, Q, S), dtype=torch.int32, device=eq.device)
-    with torch.cuda.device(eq.device):
+    with Span("bitpal_tiled" if tiled else "bitpal_regs"), torch.cuda.device(eq.device):
         stream = torch.cuda.current_stream(eq.device).cuda_stream
         rc = getattr(kernels.lib, f"bgsa_{kernel}")(
             eq.data_ptr(), q.data_ptr(), out.data_ptr(),
@@ -487,5 +505,10 @@ def launch(kernel: str, p: BitpalParams, planes: int, eq, queries, *, read_len, 
             Q, m, W, S, read_len, factor, int(semi_global), word_bits, stream,
         )
     kernels.check(rc, kernel)
+    if counts is not None:
+        word_columns = Q * m * W * S
+        counts.word_columns += word_columns
+        counts.tiled_word_columns += word_columns if tiled else 0
+        if scratch is not None:
+            counts.scratch_peak_bytes = max(counts.scratch_peak_bytes, scratch.nbytes)
     return out
-

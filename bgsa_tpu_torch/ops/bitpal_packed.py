@@ -22,8 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from .bitpal import (WORD_BITS, BitpalParams, _check, add_carry, bit, carry_layout, launch,
-                     popcount, valid_masks, word_major_ref, word_mask)
+from .bitpal import (WORD_BITS, BitpalParams, LaunchCounts, _check, add_carry, bit,
+                     carry_layout, launch, popcount, valid_masks, word_major_ref, word_mask)
 
 # Kernel launches made by ``bitpal_packed`` (CUDA tensors only).
 LAUNCHES = 0
@@ -294,11 +294,13 @@ def bitpal_packed_tiled_ref(eq, queries, *, match: int, mismatch: int, gap: int,
 
 
 def bitpal_packed(eq, queries, *, match: int, mismatch: int, gap: int, read_len: int,
-                  factor: int = 1, semi_global: bool = False, word_bits: int = WORD_BITS):
+                  factor: int = 1, semi_global: bool = False, word_bits: int = WORD_BITS,
+                  counts: LaunchCounts | None = None):
     """(5, W, S) int32 Eq words x (Q, m) query codes -> (Q, S) int32 scores.
 
     CPU tensors run the plain version; CUDA tensors launch the scheme's
-    kernel (built on first use, and raising if it cannot build or launch).
+    kernel (built on first use, and raising if it cannot build or launch),
+    adding to ``counts`` where it is given.
     """
     p = _packed_params(match, mismatch, gap)
     _check(eq, queries, read_len, word_bits)
@@ -307,7 +309,7 @@ def bitpal_packed(eq, queries, *, match: int, mismatch: int, gap: int, read_len:
         return bitpal_packed_ref(eq, queries, match=match, mismatch=mismatch, gap=gap, **kw)
     if eq.device.type != "cuda":
         raise ValueError(f"no bitpal_packed for device {eq.device}")
-    out = launch("bitpal_packed", p, _bits_num(p), eq, queries, **kw)
+    out = launch("bitpal_packed", p, _bits_num(p), eq, queries, counts=counts, **kw)
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -33,7 +33,7 @@ from . import pack
 from .io import result as result_io
 from .io import seqfile
 from .ops import build
-from .ops.bitpal import BitpalParams, bitpal
+from .ops.bitpal import BitpalParams, LaunchCounts, bitpal
 from .ops.bitpal_packed import bitpal_packed, packed_supported
 from .ops.myers_semiglobal import myers_semiglobal
 from .schemes import (Algorithm, Mode, NormalizedScheme, Scoring, check_type, normalize)
@@ -218,6 +218,12 @@ class Engine:
                     raise ValueError(f"unsupported device {d}")
         self.device = self.devices[0]
         self.n_shards = len(self.devices)
+        self.bitpal_counts = LaunchCounts()
+
+    def take_bitpal_counts(self) -> LaunchCounts:
+        """The BitPAl launches' counts since the last call, which resets them."""
+        counts, self.bitpal_counts = self.bitpal_counts, LaunchCounts()
+        return counts
 
     def compile_for(self, nq: int, q_len: int, rows: int, s_len: int,
                     transport: str, sidecar: int = 0) -> None:
@@ -253,7 +259,8 @@ class Engine:
             kernel = bitpal_packed if self.kernel == "bitpal_packed" else bitpal
             return kernel(eq, queries, match=s.match, mismatch=s.mismatch, gap=s.gap,
                           read_len=codes.shape[1], factor=s.factor,
-                          semi_global=s.mode is Mode.SEMI_GLOBAL, word_bits=word_bits)
+                          semi_global=s.mode is Mode.SEMI_GLOBAL, word_bits=word_bits,
+                          counts=self.bitpal_counts)
 
     def scores_packed(self, query_codes: np.ndarray, transport: str, payload, s_len: int):
         """Score a transport-packed subject batch (``pack.select_transport``
@@ -735,6 +742,8 @@ def run_bucketed(
                                                               codes.shape[1])
                         else:
                             dev_scores = engine.scores(qb, codes)
+                    if hasattr(engine, "take_bitpal_counts"):
+                        stats.add_bitpal(engine.take_bitpal_counts())
                     events.append(("scores", dev_scores, real, bucket_index, qi))
                     n_pending += 1
                     drain(1)

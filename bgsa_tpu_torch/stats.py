@@ -5,10 +5,11 @@ Mirrors the reference's end-of-run report (``cal_cpu.c:459-475``):
 with cells = ref_len * ref_count * read_len * subject_count.
 
 The port's own copy of ``bgsa_tpu.stats``: the same fields, JSON and
-report, plus five fields the reference lacks (the reader wait; the reader
+report, plus eight fields the reference lacks (the reader wait; the reader
 thread's read and encode seconds and the buckets its native pass encoded;
-the rows scored) and ``Span``, which times a phase on the host clock and
-names it in a ``torch.profiler`` trace.
+the rows scored; the BitPAl launches' word-columns, those on the tiled
+kernel, and their largest scratch) and ``Span``, which times a phase on
+the host clock and names it in a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -51,6 +52,12 @@ class RunStats:
     # Subject rows handed to the engine, once per database bucket: the real
     # subjects plus the 'N' lane pads and run_bucketed's shape pad.
     scored_rows: int = 0
+    # BitPAl launches on the card, once a dispatch (ops.bitpal.LaunchCounts):
+    # word-columns (Q x m x W x S) in all and on the tiled kernel, and the
+    # largest device scratch one launch allocated, in bytes.
+    bitpal_word_columns: int = 0
+    bitpal_tiled_word_columns: int = 0
+    bitpal_scratch_peak_bytes: int = 0
 
     @property
     def cells(self) -> int:
@@ -58,6 +65,13 @@ class RunStats:
 
     def gcups(self, seconds: float) -> float:
         return self.cells / seconds / 1e9 if seconds > 0 else float("inf")
+
+    def add_bitpal(self, counts) -> None:
+        """Add one dispatch's ``ops.bitpal.LaunchCounts``."""
+        self.bitpal_word_columns += counts.word_columns
+        self.bitpal_tiled_word_columns += counts.tiled_word_columns
+        self.bitpal_scratch_peak_bytes = max(self.bitpal_scratch_peak_bytes,
+                                             counts.scratch_peak_bytes)
 
     def to_json(self) -> str:
         import json

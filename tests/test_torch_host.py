@@ -153,10 +153,11 @@ def test_run_stats_json_and_report():
     got_json, want_json = json.loads(got.to_json()), json.loads(want.to_json())
     assert {key: got_json[key] for key in want_json} == want_json
     # the port's own fields: the reader wait, the reader's seconds and native
-    # buckets, the rows scored
+    # buckets, the rows scored, the BitPAl launch counters
     assert set(got_json) - set(want_json) == {
         "read_wait_time", "reader_read_time", "reader_encode_time", "reader_native_buckets",
-        "scored_rows"}
+        "scored_rows", "bitpal_word_columns", "bitpal_tiled_word_columns",
+        "bitpal_scratch_peak_bytes"}
     assert got.report() == want.report() and got.cells == want.cells
 
 
