@@ -1,10 +1,11 @@
 """Bucketed alignment pipeline on torch devices: read -> pack -> kernel -> result file.
 
 ``run_bucketed`` is the port's own copy of ``bgsa_tpu.pipeline.run_bucketed``
-(whole: the reader thread, uniform-shape padding, lag-1 drain, the
-reference-identical result/``.info`` writer, host-role shard files, ``-D``
-and resume), with the port's ``PipelineConfig``. It takes any engine with
-``n_shards``, ``scores``/``scores_packed`` and ``compile_for``. This module
+(the reader thread, lag-1 drain, the reference-identical result/``.info``
+writer, host-role shard files, ``-D`` and resume; each bucket is scored at
+its own row count, with no shape pad), with the port's ``PipelineConfig``.
+It takes any engine with ``n_shards``, ``scores``/``scores_packed`` and
+``compile_for``. This module
 supplies the engine: the host packs each bucket (``pack.select_transport``),
 the payload is uploaded, unpacked and Eq-packed on the device, and the
 scheme's kernel scores it: the Myers kernel for unit-cost schemes, a BitPAl
@@ -369,10 +370,10 @@ def run_bucketed(
     """Shared bucketed driver for every kernel family (Myers/BitPAl/banded).
 
     ``engine`` needs ``n_shards`` and ``scores(query_codes, subject_codes) ->
-    (Q, S) device array``. Handles bucketing, uniform-shape padding (single
-    compile per run), warm-up compile accounting, the reader prefetch thread,
-    lag-1 result draining, reference result/.info writing, host-role shard
-    files, dynamic re-splitting (-D), and resume for both modes.
+    (Q, S) device array``. Handles bucketing, warm-up compile accounting,
+    the reader prefetch thread, lag-1 result draining, reference result/.info
+    writing, host-role shard files, dynamic re-splitting (-D), and resume
+    for both modes.
     """
     import os
 
@@ -396,13 +397,11 @@ def run_bucketed(
         for s in range(0, len(queries), config.ref_bucket_count)
     ]
 
-    # Pad every bucket's *computation* to the full-bucket shape so the jitted
-    # step compiles once per run — a tail bucket with a different subject
-    # count would otherwise trigger a second multi-minute remote compile that
-    # dwarfs the compute (measured: 135s compile vs 0.3s compute on a 1M-
-    # subject run). Result bytes are unchanged: pad scores are sliced off
-    # before writing.
-    pad_to = db.seqs_per_bucket if db.bucket_count > 1 else 0
+    # No shape pad: each bucket (or host slice) goes to the engine with the
+    # rows the reader produced, 'N' lane pads included. The port's kernels
+    # take any subject count from one library, so a tail bucket compiles
+    # nothing new; rows stay a multiple of v_num (lanes x n_shards), which
+    # scores_packed's equal shard split needs.
 
     meta = None
     meta_path = result_path + ".meta.json"
@@ -444,8 +443,9 @@ def run_bucketed(
             # from the measured per-host times of the previous bucket,
             # exchanged as files in sync_dir; every host replays the same
             # published times, so the ratio schedule is bit-identical on all
-            # of them. Slices are aligned to `chunk` so at most dynamic_grid
-            # distinct shapes ever compile.
+            # of them. Slices are aligned to `chunk` (seqs_per_bucket /
+            # dynamic_grid lanes), which the schedule and the shard files
+            # follow.
             from .parallel import multihost as mh
 
             sync_dir = sync_dir or (os.path.dirname(result_path) or ".")
@@ -489,18 +489,6 @@ def run_bucketed(
                 # delete time files its peers may have consumed already.
                 mh.clear_bucket_times(sync_dir, host_id, token=sync_token)
             dyn_ratios = list(balancer.ratios)
-            pad_to = 0  # per-bucket chunk-aligned padding instead
-        elif pad_to:
-            # Max over every bucket's slice, not the full bucket's slice:
-            # host_slice rounds to v_num multiples and gives the last host
-            # the remainder, so under skewed -R ratios a *tail* bucket's
-            # slice can exceed that host's full-bucket slice — padding to
-            # the full-bucket slice alone would compile a second geometry
-            # mid-run (a multi-minute remote episode pad_to exists to avoid).
-            pad_to = max(
-                host_slice(c, n_hosts, host_id, v_num, shard_ratios)[1]
-                for c, _ in db.bucket_counts()
-            )
     else:
         if resume:
             done_buckets = result_io.resume_point(
@@ -563,11 +551,9 @@ def run_bucketed(
                         np.asarray(engine.scores(queries[:nq], dummy)[0, 0])
 
     if not dynamic and done_buckets < db.bucket_count:
-        warm_rows = pad_to
-        if not warm_rows:
-            warm_rows = db.bucket_counts()[0][0]
-            if shard is not None:
-                warm_rows = host_slice(warm_rows, n_hosts, host_id, v_num, shard_ratios)[1]
+        warm_rows = db.bucket_counts()[0][0]
+        if shard is not None:
+            warm_rows = host_slice(warm_rows, n_hosts, host_id, v_num, shard_ratios)[1]
         ensure_warm(warm_rows)
 
     # Reader thread keeps the device fed (the reference's input_task thread).
@@ -688,23 +674,13 @@ def run_bucketed(
                 events.append(("bucket", [bucket.count], bucket.extra_count))
                 stats.subject_count += bucket.count - bucket.extra_count
             real = codes.shape[0]
-            pad_this = pad_to
             if dynamic:
-                # Chunk-aligned shape so re-splitting cycles through at most
-                # dynamic_grid compiled shapes; warm new ones outside the timed
-                # region (compile in the measurement would distort the balancer).
-                pad_this = -(-real // chunk) * chunk
-                ensure_warm(pad_this)
+                # Warm a new row count outside the timed region (compile in
+                # the measurement would distort the balancer).
+                ensure_warm(real)
                 t_bucket = time.perf_counter()
             if real == 0 and not dynamic:
                 continue
-            if real and real < pad_this:
-                # Shape-pad rows are discarded before writing (unlike the
-                # reference's extra_count 'N' pads inside bucket.codes), so use
-                # code 0 and keep the bucket on the 2-bit transport when its
-                # real rows are N-free.
-                pad = np.zeros((pad_this - real, codes.shape[1]), codes.dtype)
-                codes = np.concatenate([codes, pad])
             if real:
                 # Host-side transport packing, once per bucket (reused across
                 # query buckets) — the analogue of the reference's pack phase,

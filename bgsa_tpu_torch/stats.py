@@ -50,7 +50,8 @@ class RunStats:
     reader_encode_time: float = 0.0
     reader_native_buckets: int = 0
     # Subject rows handed to the engine, once per database bucket: the real
-    # subjects plus the 'N' lane pads and run_bucketed's shape pad.
+    # subjects plus the reference's 'N' lane pads (run_bucketed adds no
+    # shape pad).
     scored_rows: int = 0
     # BitPAl launches on the card, once a dispatch (ops.bitpal.LaunchCounts):
     # word-columns (Q x m x W x S) in all and on the tiled kernel, and the

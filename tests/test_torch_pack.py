@@ -48,6 +48,25 @@ def test_rare_n_rides_the_sidecar_transport():
     np.testing.assert_array_equal(got.numpy(), c)
 
 
+@pytest.mark.parametrize("real,pads,length,full", [(49_600, 64, 150, 190_080),
+                                                    (10_528, 96, 960, 29_824)],
+                         ids=["150bp", "960bp"])
+def test_tail_bucket_transport_is_the_same_without_a_shape_pad(real, pads, length, full):
+    """A tail bucket of 1M x 150 bp or 100,000 x 960 bp subjects, its 'N'
+    lane pads included, takes the 2-bit + sidecar transport at its own rows
+    as it did padded with zero rows to the full bucket, and its payload
+    unpacks to the tail's codes."""
+    rng = np.random.default_rng(length)
+    tail = np.concatenate([rng.integers(0, 4, (real, length), np.uint8),
+                           np.full((pads, length), pack.MAPPING[ord("N")], np.uint8)])
+    padded = np.concatenate([tail, np.zeros((full - len(tail), length), np.uint8)])
+    assert pack.select_transport(padded)[0] == "2bitN"
+    name, payload = pack.select_transport(tail)
+    assert name == "2bitN"
+    got = pack.transport_unpack(name)(tuple(map(torch.from_numpy, payload)), length)
+    np.testing.assert_array_equal(got.numpy(), tail)
+
+
 @pytest.mark.parametrize("n", LENGTHS)
 @pytest.mark.parametrize("with_n", [False, True])
 def test_pack_eq_matches_jax_and_numpy(n, with_n):

@@ -17,6 +17,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -114,28 +115,90 @@ def test_port_roles_equal_jax_roles_and_merge_equals_single(tmp_path, rng, k):
         tmp_path, qp, sp, k=k, bucket_size=256 * (n + 1), ref_bucket_count=3)
 
 
-@pytest.mark.parametrize("ratios,n_hosts", [([1e9, 1.0], 2), ([1e9, 1.0, 1e9], 3)],
-                         ids=["minimal-last-host", "zero-middle-host"])
-def test_port_extreme_ratios_merge_equals_single(tmp_path, rng, ratios, n_hosts):
+@pytest.mark.parametrize("ratios,S,rows,block_counts", [
+    ([1e9, 1.0], 700, 512, [[384, 128], [128, 128]]),
+    ([1e9, 1.0, 1e9], 700, 512, [[128, 0], [0, 0], [384, 256]]),
+    ([1.0, 1.0, 1.0], 1380, 768, [[256, 128], [256, 128], [256, 384]]),
+], ids=["minimal-last-host", "zero-middle-host", "tail-slice-over-full-slice"])
+def test_port_extreme_ratios_merge_equals_single(tmp_path, rng, ratios, S, rows,
+                                                 block_counts):
     """Ratios skewed ~1e9:1: the last host inherits one lane group a bucket,
     more than half of it 'N' pads; a middle host can get nothing at all (an
-    empty shard). Merge + convert still equal the single-host run."""
-    S, n = 700, 24
+    empty shard). Equal thirds: the last host's slice of the tail bucket
+    (its remainder) is larger than its slice of a full one. Merge + convert
+    still equal the single-host run."""
+    n, n_hosts = 24, len(ratios)
     qp, sp = dataset(tmp_path, rng, 3, 20, S, n)
-    cfg = port.PipelineConfig(bucket_size=512 * (n + 1))
+    cfg = port.PipelineConfig(bucket_size=rows * (n + 1))
     paths, metas = port_roles(tmp_path, qp, sp, n_hosts, cfg, ratios=ratios)
-    if n_hosts == 2:
-        assert metas[1].block_counts == [128, 128]  # one lane group per bucket
-        assert metas[1].extra_counts[-1] == 256 - (700 - 512)  # 68 pads, > half
-    else:
-        assert metas[1].block_counts == [0, 0]  # middle host floored to nothing
-        assert os.path.getsize(paths[1]) == 0
+    counts = seqfile.DatabaseReader(sp, cfg.bucket_size, cfg.v_num).bucket_counts()
+    assert metas[-1].extra_counts[-1] == counts[-1][1] == -(S - rows) % 128
     for h in range(n_hosts):
-        assert metas[h].block_counts == [
-            jax_multihost.host_slice(c, n_hosts, h, 128, ratios)[1] for c in (512, 256)]
+        assert metas[h].block_counts == block_counts[h] == [
+            jax_multihost.host_slice(c, n_hosts, h, 128, ratios)[1] for c, _ in counts]
+        if not any(block_counts[h]):
+            assert os.path.getsize(paths[h]) == 0  # an empty shard
     merged = str(tmp_path / "merged.bin")
     multihost.merge_shards(merged, paths, metas)
-    assert converted(merged) == jax_single(tmp_path, qp, sp, bucket_size=512 * (n + 1))
+    assert converted(merged) == jax_single(tmp_path, qp, sp, bucket_size=rows * (n + 1))
+
+
+@pytest.mark.parametrize("run", ["single", "roles", "dynamic"])
+def test_port_buckets_reach_the_engine_unpadded(tmp_path, rng, monkeypatch, run):
+    """Over two shards (lanes of 128 x 2), each scores_packed call gets the
+    rows of its bucket, or of this host's slice of it under a skewed -R or
+    -D, 'N' lane pads included and nothing more: a multiple of 256, the tail
+    not padded to the full bucket. The roles merge equal to the single-host
+    run."""
+    # buckets of 2,560 and 700 + 68 'N' lane pads; -D slices of 512 (chunk)
+    S, n = 3260, 24
+    qp, sp = dataset(tmp_path, rng, 3, 20, S, n)
+    cfg = port.PipelineConfig(bucket_size=2560 * (n + 1))
+    rows = {}
+    scores_packed = port.Engine.scores_packed
+
+    def record(self, query_codes, transport, payload, s_len):
+        main = payload[0] if isinstance(payload, tuple) else payload
+        rows.setdefault(threading.current_thread().name, []).append(main.shape[0])
+        return scores_packed(self, query_codes, transport, payload, s_len)
+
+    monkeypatch.setattr(port.Engine, "scores_packed", record)
+    kw = dict(config=cfg, devices=["cpu", "cpu"])
+    single = str(tmp_path / "single.bin")
+    if run == "single":
+        port.run_alignment(qp, sp, single, **kw)
+        assert rows == {"MainThread": [2560, 768]}
+        return
+    n_hosts = 2
+    paths = [str(tmp_path / f"shard{h}.bin") for h in range(n_hosts)]
+    if run == "roles":
+        metas = [port.run_alignment(qp, sp, paths[h], shard=(h, n_hosts),
+                                    shard_ratios=[3.0, 1.0], **kw)[1]
+                 for h in range(n_hosts)]
+        names = ["MainThread"] * n_hosts
+    else:  # -D roles wait for each other's bucket times: one thread each
+        metas = [None] * n_hosts
+
+        def role(h):
+            metas[h] = port.run_alignment(qp, sp, paths[h], shard=(h, n_hosts),
+                                          dynamic=True, sync_dir=str(tmp_path), **kw)[1]
+
+        threads = [threading.Thread(target=role, args=(h,), name=f"role{h}")
+                   for h in range(n_hosts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        names = [t.name for t in threads]
+    got = [c for name in dict.fromkeys(names) for c in rows[name]]
+    want = [c for m in metas for c in m.block_counts if c]
+    assert got == want and all(c % 256 == 0 for c in got)
+    assert [sum(m.block_counts[b] for m in metas) for b in range(2)] == [2560, 768]
+    merged = str(tmp_path / "merged.bin")
+    multihost.merge_shards(merged, paths, metas)
+    port.run_alignment(qp, sp, single, **kw)
+    assert converted(merged) == converted(single)
 
 
 def test_port_cli_host_roles_merge_both_ways(tmp_path, rng):

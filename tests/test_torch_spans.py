@@ -24,9 +24,9 @@ from bgsa_tpu_torch.stats import RunStats, Span
 
 LEN = 24
 QUERIES = 150  # two query buckets: 100 (REF_BUCKET_COUNT) and 50
-SUBJECTS = 600  # buckets of 256, 256 and 88 + 40 'N' lane pads, shape-padded to 256
+SUBJECTS = 600  # buckets of 256, 256 and 88 + 40 'N' lane pads
 CONFIG = PipelineConfig(bucket_size=256 * (LEN + 1))
-BUCKETS, QUERY_BUCKETS, BUCKET_ROWS = 3, 2, 256
+BUCKETS, QUERY_BUCKETS = 3, 2
 
 RUNS = {
     "myers": lambda q, d, r: run_alignment(q, d, r, config=CONFIG, device="cpu"),
@@ -117,8 +117,8 @@ def test_scored_rows_match_the_bucket_layout(traced):
     db = seqfile.DatabaseReader(d, CONFIG.bucket_size, CONFIG.v_num)
     assert db.bucket_counts() == [(256, 0), (256, 0), (128, 40)]
     assert stats.subject_count == SUBJECTS
-    # the tail's 88 subjects and 40 'N' lane pads, shape-padded to the full bucket
-    assert stats.scored_rows == BUCKETS * db.seqs_per_bucket == BUCKETS * BUCKET_ROWS
+    # the tail reaches the engine as its 88 subjects and 40 'N' lane pads
+    assert stats.scored_rows == sum(c for c, _ in db.bucket_counts()) == 256 + 256 + 128
     assert stats.reader_read_time > 0 and stats.reader_encode_time > 0
     assert stats.reader_read_time + stats.reader_encode_time < stats.total_time
     written = json.loads(stats.to_json())  # what --stats-json writes
