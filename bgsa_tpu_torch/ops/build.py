@@ -20,7 +20,7 @@ their scheme's library.
 
 Importing this module builds nothing. ``load()`` and ``load_scheme()``
 build on first use (the first kernel launch on a CUDA tensor, or
-``compile_for`` of an engine), and a failed build raises with the nvcc
+``Engine.warm``), and a failed build raises with the nvcc
 command and its stderr.
 """
 

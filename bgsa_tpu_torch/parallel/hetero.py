@@ -95,8 +95,7 @@ def run_hetero(
     # builds the library at first use (nvcc), creates the CUDA context and
     # loads the kernel's module. A first launch inside the timed worker
     # would feed the balancer an inflated time for that bucket. The nibble
-    # path is warmed too when the tail bucket carries 'N' lane pads (as
-    # run_bucketed does).
+    # path is warmed too when the tail bucket carries 'N' lane pads.
     warmed = [False] * n_dev
     warm_fills = (0, 4) if db.bucket_counts()[-1][1] else (0,)
 

@@ -385,10 +385,9 @@ def read_bucket_times(sync_dir: str, bucket: int, n_hosts: int,
     ratio schedule bit-identical on every host.
 
     A peer that has announced itself (its hello file exists — write_hello)
-    gets ``grace_factor`` times longer: remote-TPU compile episodes of many
-    minutes legitimately delay the first bucket's publish (one measured
-    752 s, docs/PERF.md), and killing a healthy run as a "dead peer" is
-    worse than waiting. A peer with no hello file never launched — that
+    gets ``grace_factor`` times longer: a first nvcc build of the kernel
+    library legitimately delays the first bucket's publish, and killing a
+    healthy run as a "dead peer" is worse than waiting. A peer with no hello file never launched — that
     fails at the base ``timeout``.
     """
     import os

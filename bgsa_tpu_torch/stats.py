@@ -30,7 +30,9 @@ class RunStats:
     pack_time: float = 0.0
     cal_time: float = 0.0
     write_time: float = 0.0
-    compile_time: float = 0.0  # XLA compile (no reference analogue)
+    # The kernel library's nvcc build or load and the CUDA contexts (no
+    # reference analogue)
+    compile_time: float = 0.0
     total_time: float = 0.0
     # Per-bucket kernel+fetch seconds (the reference's use_times matrix,
     # cal_all.c:318-321 — the input to its dynamic load balancer; feed these

@@ -201,6 +201,75 @@ def test_port_buckets_reach_the_engine_unpadded(tmp_path, rng, monkeypatch, run)
     assert converted(merged) == converted(single)
 
 
+@pytest.mark.parametrize("run,warms", [
+    ("single", [1]), ("roles", [1, 1]), ("dynamic", [1, 1]), ("resumed", [1]),
+    ("resumed-complete", [0]),
+], ids=["single", "roles", "dynamic", "resumed", "resumed-complete"])
+def test_port_run_warms_once(tmp_path, rng, monkeypatch, run, warms):
+    """Engine.warm runs once a run, before the first bucket is scored, in
+    every mode that has a bucket left to score: a single host, each --host
+    role, each -D role, a resumed truncated run; a resumed run whose buckets
+    are all done warms nothing and scores nothing. Each run keeps its bytes."""
+    Q, n = 3, 24
+    qp, sp = dataset(tmp_path, rng, Q, 20, 700, n)  # buckets of 256, 256, 128
+    cfg = port.PipelineConfig(bucket_size=256 * (n + 1))
+    full = str(tmp_path / "full.bin")
+    port.run_alignment(qp, sp, full, config=cfg, device="cpu")
+    calls = {}
+
+    def logged(kind, method):
+        def call(self, *args):
+            calls.setdefault(threading.current_thread().name, []).append(kind)
+            return method(self, *args)
+        return call
+
+    monkeypatch.setattr(port.Engine, "warm", logged("warm", port.Engine.warm))
+    monkeypatch.setattr(port.Engine, "scores_packed",
+                        logged("score", port.Engine.scores_packed))
+    paths = [str(tmp_path / f"run{i}.bin") for i in range(len(warms))]
+    kw = dict(config=cfg, device="cpu")
+    if run.startswith("resumed"):
+        shutil.copy(full, paths[0])
+        shutil.copy(full + ".info", paths[0] + ".info")
+        if run == "resumed":
+            with open(paths[0], "r+b") as f:
+                f.truncate(256 * Q * 2 + 100)  # a bucket and a half
+        kw["resume"] = True
+    elif run != "single":
+        kw.update(shard=(0, 2), dynamic=run == "dynamic", sync_dir=str(tmp_path))
+    errors = []
+
+    def one(i):
+        try:
+            if "shard" in kw:
+                port.run_alignment(qp, sp, paths[i], **{**kw, "shard": (i, 2)})
+            else:
+                port.run_alignment(qp, sp, paths[i], **kw)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the test's thread
+            errors.append(e)
+
+    # one thread a run, concurrent: -D roles wait for each other's bucket times
+    threads = [threading.Thread(target=one, args=(i,), name=f"run{i}")
+               for i in range(len(warms))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    if errors:
+        raise errors[0]
+    for i, want in enumerate(warms):
+        got = calls.get(f"run{i}", [])
+        assert got.count("warm") == want
+        assert got[:want] == ["warm"] * want and ("score" in got) == bool(want)
+    if run.startswith("resumed"):
+        assert read(paths[0]) == read(full)
+        assert read(paths[0] + ".info") == read(full + ".info")
+    elif run != "single":
+        merged, _ = merge_roles(tmp_path, paths)
+        assert converted(merged) == converted(full)
+
+
 def test_port_cli_host_roles_merge_both_ways(tmp_path, rng):
     """bgsa-torch-align --host I:2 -R, then bgsa-torch-merge; bgsa-merge takes
     the port's shards and bgsa-torch-merge bgsa-align's, each merge byte-equal

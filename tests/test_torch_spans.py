@@ -37,9 +37,9 @@ RUNS = {
 PACKER = {"myers": "eq_pack", "bitpal": "eq_pack", "banded": "stream_pack"}
 ENGINE_SPANS = ("upload", "unpack", "kernel", "narrow")
 # driver span -> the RunStats field it bills
-BILLS = {"open": "read_time", "warm": "compile_time", "compile": "compile_time",
-         "read_wait": "read_wait_time", "transport_pack": "pack_time", "dispatch": "cal_time",
-         "fetch": "cal_time", "write": "write_time"}
+BILLS = {"open": "read_time", "warm": "compile_time", "read_wait": "read_wait_time",
+         "transport_pack": "pack_time", "dispatch": "cal_time", "fetch": "cal_time",
+         "write": "write_time"}
 
 
 def write_inputs(directory, queries=QUERIES):
@@ -89,7 +89,7 @@ def test_every_span_once_per_bucket_or_query_bucket(traced):
     per_dispatch = BUCKETS * QUERY_BUCKETS
     want = {"engine": 1, "open": 1, "warm": 1, "close": 1,
             "read_wait": BUCKETS + 1,  # the last get() takes the end-of-file mark
-            "transport_pack": BUCKETS, "compile": BUCKETS,
+            "transport_pack": BUCKETS,
             "dispatch": per_dispatch, "fetch": per_dispatch, "write": per_dispatch,
             PACKER[family]: per_dispatch, **{n: per_dispatch for n in ENGINE_SPANS}}
     assert counts == want
