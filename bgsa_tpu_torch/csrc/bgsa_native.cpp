@@ -4,11 +4,12 @@
 // result conversion — e.g. original/BGSA_CPU/convert.c:167-277, global.c:25-70).
 // The port's compute path is CUDA; this library provides C++ equivalents
 // for the host-side paths that are hot at production scale and slow in
-// Python: the database reader's line encode, blocked-result-to-text
-// conversion and the host packers.
+// Python: the database reader's line encode and transport packing,
+// blocked-result-to-text conversion and the host packers.
 //
 // The port's copy of bgsa_tpu's native/bgsa_native.cpp: the same functions,
-// plus bgsa_encode_lines. Exposed as a plain C ABI consumed via ctypes.
+// plus bgsa_encode_lines, bgsa_encode_transport and bgsa_list_n. Exposed as
+// a plain C ABI consumed via ctypes.
 // Build: g++ -O3 -march=native -shared -fPIC -o libbgsa_native.so bgsa_native.cpp
 // (bgsa_tpu_torch.native builds it on demand and falls back to Python
 // otherwise). This file is not a CUDA source: ops/build.py compiles only the
@@ -22,6 +23,7 @@
 #include <sys/stat.h>
 #include <fcntl.h>
 #include <unistd.h>
+#include <atomic>
 #include <thread>
 #include <vector>
 
@@ -151,6 +153,96 @@ inline void encode_line(const uint8_t* in, uint8_t* out, int64_t length) {
   }
 #endif
   for (int64_t i = 0; i < length; i++) out[i] = encode_byte(in[i]);
+}
+
+// The 2-bit transport code of one ASCII byte: encode_byte with 'N' (and
+// every byte outside ACGT) read as 0, as select_transport's "2bitN" payload
+// holds it; the sidecar carries the 'N's.
+inline uint8_t two_bit_byte(uint8_t b) {
+  return (uint8_t)((b == 'C') | ((b == 'G') << 1) | ((b == 'T') * 3));
+}
+
+#ifdef __AVX2__
+// two_bit_byte on 32 bytes at once, and the mask of the lanes that hold 'N'.
+inline __m256i two_bit_vector(__m256i v, uint32_t* n_lanes) {
+  const __m256i c = _mm256_and_si256(_mm256_cmpeq_epi8(v, _mm256_set1_epi8('C')),
+                                     _mm256_set1_epi8(1));
+  const __m256i g = _mm256_and_si256(_mm256_cmpeq_epi8(v, _mm256_set1_epi8('G')),
+                                     _mm256_set1_epi8(2));
+  const __m256i t = _mm256_and_si256(_mm256_cmpeq_epi8(v, _mm256_set1_epi8('T')),
+                                     _mm256_set1_epi8(3));
+  *n_lanes = (uint32_t)_mm256_movemask_epi8(_mm256_cmpeq_epi8(v, _mm256_set1_epi8('N')));
+  return _mm256_or_si256(_mm256_or_si256(c, g), t);
+}
+
+// 32 codes 0..3 to 8 bytes, code j of a byte in its bits 2j, 2j + 1 (the
+// layout of bgsa_two_bit_pack): c0 + 4 c1 a 16-bit lane, then + 16 (c2 +
+// 4 c3) a 32-bit lane, then each 32-bit lane's low byte gathered in order.
+inline uint64_t pack_two_bit_vector(__m256i codes) {
+  const __m256i pairs = _mm256_maddubs_epi16(codes, _mm256_set1_epi16(0x0401));
+  const __m256i quads = _mm256_madd_epi16(pairs, _mm256_set1_epi32(0x00100001));
+  const __m256i low = _mm256_shuffle_epi8(
+      quads, _mm256_setr_epi8(0, 4, 8, 12, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1,
+                              0, 4, 8, 12, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1));
+  const __m256i both =
+      _mm256_permutevar8x32_epi32(low, _mm256_setr_epi32(0, 4, 0, 0, 0, 0, 0, 0));
+  return (uint64_t)_mm_cvtsi128_si64(_mm256_castsi256_si128(both));
+}
+
+// A 32-byte vector's first r lanes (0 < r < 32): load from kKeep + 32 - r.
+alignas(64) const uint8_t kKeep[64] = {
+    0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF,
+    0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF};
+#endif
+
+// One line of `length` bytes to its (length + 3) / 4 two-bit bytes at
+// `out`, zero bits past the line's end; returns the line's 'N' count. With
+// AVX2, whole vectors, then one more for the last length % 32 bytes: it
+// loads 32 bytes from the line's bytes on (its newline and the next line
+// after them) where the bucket, which ends at `end`, holds them, or else
+// from a copy of the rest of the line; lanes past the line count and pack
+// nothing. Without AVX2, two_bit_byte a byte at a time.
+inline int64_t two_bit_line(const uint8_t* line, const uint8_t* end, int64_t length,
+                            uint8_t* out) {
+  int64_t n = 0, i = 0;
+#ifdef __AVX2__
+  uint32_t lanes;
+  for (; i + 32 <= length; i += 32) {
+    const uint64_t w = pack_two_bit_vector(two_bit_vector(
+        _mm256_loadu_si256(reinterpret_cast<const __m256i*>(line + i)), &lanes));
+    memcpy(out + i / 4, &w, 8);
+    n += __builtin_popcount(lanes);
+  }
+  const int64_t r = length - i;
+  if (r) {
+    const uint8_t* src = line + i;
+    alignas(32) uint8_t rest[32];
+    if (end - src < 32) {
+      memcpy(rest, src, (size_t)r);
+      memset(rest + r, 0, (size_t)(32 - r));
+      src = rest;
+    }
+    __m256i codes = two_bit_vector(_mm256_loadu_si256(reinterpret_cast<const __m256i*>(src)),
+                                   &lanes);
+    codes = _mm256_and_si256(codes, _mm256_loadu_si256(
+                                        reinterpret_cast<const __m256i*>(kKeep + 32 - r)));
+    const uint64_t w = pack_two_bit_vector(codes);
+    memcpy(out + i / 4, &w, (size_t)((r + 3) / 4));
+    n += __builtin_popcount(lanes & ((1u << r) - 1));
+  }
+  return n;
+#else
+  (void)end;
+  for (; i < length; i += 4) {
+    uint8_t b = 0;
+    for (int64_t j = 0; j < 4 && i + j < length; j++) {
+      b |= two_bit_byte(line[i + j]) << (2 * j);
+      n += line[i + j] == 'N';
+    }
+    out[i / 4] = b;
+  }
+  return n;
+#endif
 }
 
 }  // namespace
@@ -353,6 +445,65 @@ int64_t bgsa_encode_lines(const uint8_t* raw, int64_t rows, int64_t length,
   }
   memset(out + rows * length, 4, (size_t)(pad_rows * length));
   return -1;
+}
+
+// The database reader's bucket encode straight to the 2-bit transport
+// (pack.select_transport's payload for N-free codes, and its "2bitN"
+// payload otherwise): the lines of bgsa_encode_lines, each to (length + 3)
+// / 4 bytes at `out`, 'N' read as 0, then `pad_rows` all-'N' lines (zero
+// bytes). Each line's 'N' count goes to `row_n`, and the bucket's, pads
+// included, to `*n_count`, for the sidecar (bgsa_list_n). Fans the lines
+// out over up to `nthreads` threads; loads nothing past the line bytes'
+// last line's newline. Returns the first line whose byte at column
+// `length` is not a newline, as bgsa_encode_lines does (`out` is then
+// incomplete), or -1.
+int64_t bgsa_encode_transport(const uint8_t* raw, int64_t rows, int64_t length,
+                              int64_t stride, uint8_t* out, int32_t* row_n,
+                              int64_t* n_count, int64_t pad_rows, int32_t nthreads) {
+  const int64_t W = (length + 3) / 4;
+  const uint8_t* end = rows ? raw + (rows - 1) * stride + length + 1 : raw;
+  std::atomic<int64_t> bad{rows}, total{pad_rows * length};
+  parallel_rows(rows, nthreads, [&, W, end](int64_t r0, int64_t r1) {
+    int64_t n = 0;
+    for (int64_t r = r0; r < r1; r++) {
+      const uint8_t* line = raw + r * stride;
+      if (line[length] != '\n') {
+        for (int64_t seen = bad.load(); r < seen && !bad.compare_exchange_weak(seen, r);) {
+        }
+        break;
+      }
+      row_n[r] = (int32_t)two_bit_line(line, end, length, out + r * W);
+      n += row_n[r];
+    }
+    total += n;
+  });
+  memset(out + rows * W, 0, (size_t)(pad_rows * W));
+  *n_count = total.load();
+  const int64_t first_bad = bad.load();
+  return first_bad < rows ? first_bad : -1;
+}
+
+// The sidecar of bgsa_encode_transport's bucket: the (row, column) of each
+// of its 'N's, pad lines included, in row-major order (np.nonzero's), as
+// int32 pairs at `pos`. Visits only the lines whose `row_n` is not 0, then writes the pad
+// lines' positions without reading them.
+void bgsa_list_n(const uint8_t* raw, int64_t rows, int64_t length, int64_t stride,
+                 const int32_t* row_n, int64_t pad_rows, int32_t* pos) {
+  for (int64_t r = 0; r < rows; r++) {
+    if (!row_n[r]) continue;
+    const uint8_t* line = raw + r * stride;
+    for (const uint8_t* p = line;
+         (p = static_cast<const uint8_t*>(memchr(p, 'N', (size_t)(line + length - p))));
+         p++) {
+      *pos++ = (int32_t)r;
+      *pos++ = (int32_t)(p - line);
+    }
+  }
+  for (int64_t r = rows; r < rows + pad_rows; r++)
+    for (int64_t c = 0; c < length; c++) {
+      *pos++ = (int32_t)r;
+      *pos++ = (int32_t)c;
+    }
 }
 
 }  // extern "C"

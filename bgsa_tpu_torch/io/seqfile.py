@@ -20,7 +20,8 @@ readers check the newline column and encode in one native pass over the raw
 line bytes (``native.encode_lines``, the interpreter lock released), or with
 numpy where the native library is missing. ``DatabaseReader`` can also bill
 its read and encode seconds, and the buckets the native pass encoded, to a
-run's ``RunStats``.
+run's ``RunStats``, and can hand out each bucket transport-packed instead
+of as codes (``encode_transport``).
 """
 
 from __future__ import annotations
@@ -92,27 +93,66 @@ def encode_lines(raw: bytes, rows: int, length: int, pad_rows: int = 0):
     return pack.encode_ascii(arr), -1, False
 
 
+def encode_transport(raw: bytes, rows: int, length: int, pad_rows: int = 0, n_shards: int = 1,
+                     threads: int = 1):
+    """``pack.select_transport(codes, n_shards=n_shards, threads=threads)``
+    of the codes ``encode_lines`` gives, as (transport, payload, bad, native,
+    packed): the same name, payload bytes and choice; ``bad`` as
+    ``encode_lines``'s (transport and payload then None); ``native`` whether
+    the native library encoded the bytes; ``packed`` whether its pass went
+    from the bytes straight to the payload (``native.encode_transport``: one
+    shard, and a "2bit" or "2bitN" payload). Every other case encodes the
+    codes, then packs them with ``select_transport``."""
+    buf = np.frombuffer(raw, np.uint8)
+    got = native.encode_transport(buf, rows, length, length + 1, pad_rows, threads) \
+        if n_shards == 1 else None
+    if got is not None:
+        two_bit, row_n, n_count, bad = got
+        if bad >= 0:
+            return None, None, bad, True, False
+        if n_count == 0:
+            return "2bit", two_bit, -1, True, True
+        size = pack.sidecar_size(n_count, rows + pad_rows, length)
+        if size is not None:
+            sidecar = native.list_n(buf, rows, length, length + 1, pad_rows, row_n, size)
+            return "2bitN", (two_bit, sidecar), -1, True, True
+    codes, bad, native_pass = encode_lines(raw, rows, length, pad_rows)
+    if bad >= 0:
+        return None, None, bad, native_pass, False
+    transport, payload = pack.select_transport(codes, n_shards=n_shards, threads=threads)
+    return transport, payload, -1, native_pass, False
+
+
 @dataclasses.dataclass
 class Bucket:
-    """One database bucket of equal-length subjects."""
+    """One database bucket of equal-length subjects: its symbol codes, or,
+    from a reader asked for them, its transport name and payload."""
 
-    codes: np.ndarray  # (count, length) uint8 symbol codes (pads included)
+    codes: np.ndarray | None  # (count, length) uint8 symbol codes (pads included)
     count: int  # sequences including pads
     extra_count: int  # trailing all-'N' pad sequences (final bucket only)
+    transport: str | None = None  # pack.select_transport's (name, payload) of the codes
+    payload: object = None
 
 
 class DatabaseReader:
     """Iterates subject buckets with reference-compatible boundaries. Given
-    ``stats`` (a ``RunStats``), iterating adds its seconds in file reads to
-    ``stats.reader_read_time``, in the newline check, 'N' pads and encoding
-    to ``stats.reader_encode_time``, and each bucket the native pass encoded
-    to ``stats.reader_native_buckets``."""
+    ``transport_shards``, each bucket carries ``select_transport``'s
+    payload for that many shards instead of codes (``encode_transport``,
+    over ``threads`` threads). Given ``stats`` (a ``RunStats``), iterating
+    adds its seconds in file reads to ``stats.reader_read_time``, in the
+    newline check, 'N' pads, encoding and packing to
+    ``stats.reader_encode_time``, each bucket the native pass encoded to
+    ``stats.reader_native_buckets``, and each whose payload it packed to
+    ``stats.reader_packed_buckets``."""
 
     def __init__(self, path: str, bucket_size: int = DEFAULT_BUCKET_SIZE, v_num: int = 128,
-                 stats=None):
+                 stats=None, transport_shards: int | None = None, threads: int = 1):
         self.path = path
         self.v_num = v_num
         self.stats = stats
+        self.transport_shards = transport_shards
+        self.threads = threads
         self.length = detect_line_length(path)
         self.stride = self.length + 1
         self.total_size = os.path.getsize(path)
@@ -171,7 +211,14 @@ class DatabaseReader:
                 extra = 0
                 if b == self.bucket_count - 1 and take % self.v_num:
                     extra = self.v_num - take % self.v_num
-                codes, bad, native_pass = encode_lines(raw, take, self.length, extra)
+                packed = False
+                if self.transport_shards is None:
+                    codes, bad, native_pass = encode_lines(raw, take, self.length, extra)
+                    bucket = Bucket(codes, take + extra, extra)
+                else:
+                    transport, payload, bad, native_pass, packed = encode_transport(
+                        raw, take, self.length, extra, self.transport_shards, self.threads)
+                    bucket = Bucket(None, take + extra, extra, transport, payload)
                 if bad >= 0:
                     raise ValueError(
                         f"{self.path}: not fixed-length lines of "
@@ -182,7 +229,8 @@ class DatabaseReader:
                     self.stats.reader_read_time += t1 - t0
                     self.stats.reader_encode_time += time.perf_counter() - t1
                     self.stats.reader_native_buckets += native_pass
-                yield Bucket(codes, take + extra, extra)
+                    self.stats.reader_packed_buckets += packed
+                yield bucket
 
 
 def read_queries(path: str) -> np.ndarray:

@@ -2,7 +2,8 @@
 
 The port's own copy of ``bgsa_tpu.native``, same behaviour, with two
 differences: it builds the port's copy of the source, which adds the
-database reader's line encode (``encode_lines``); and the library is built
+database reader's line encode (``encode_lines``) and its encode straight to
+the 2-bit transport (``encode_transport``, ``list_n``); and the library is built
 into the checkout's ``build/bgsa_tpu_torch/`` (gitignored), beside the CUDA
 kernel libraries, named by a hash of the source and the flags, instead of a
 cache under the home directory. It is built on first use (g++ -O3 -shared);
@@ -98,6 +99,16 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_int64,
         ]
+        lib.bgsa_encode_transport.restype = ctypes.c_int64
+        lib.bgsa_encode_transport.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ]
+        lib.bgsa_list_n.restype = None
+        lib.bgsa_list_n.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ]
         _lib = lib
         return _lib
 
@@ -184,6 +195,17 @@ def pack_eq(codes: np.ndarray, word_bits: int):
     return eq
 
 
+def _line_buffer(raw: np.ndarray, rows: int, length: int, stride: int, pad_rows: int):
+    """``raw`` as flat uint8, once its line geometry is checked."""
+    raw = np.ascontiguousarray(raw, dtype=np.uint8).reshape(-1)
+    if min(rows, pad_rows) < 0 or length < 1 or stride <= length:
+        raise ValueError(f"bad line geometry: rows {rows}, pad_rows {pad_rows}, "
+                         f"length {length}, stride {stride}")
+    if rows and raw.size < (rows - 1) * stride + length + 1:
+        raise ValueError(f"{raw.size} bytes hold fewer than {rows} lines of {stride}")
+    return raw
+
+
 def encode_lines(raw: np.ndarray, rows: int, length: int, stride: int, pad_rows: int = 0):
     """Native encode of ``rows`` lines of ``length`` ASCII bytes, ``stride``
     bytes apart in the flat uint8 buffer ``raw``, to (rows + pad_rows,
@@ -194,12 +216,49 @@ def encode_lines(raw: np.ndarray, rows: int, length: int, stride: int, pad_rows:
     lib = get_lib()
     if lib is None:
         return None
-    raw = np.ascontiguousarray(raw, dtype=np.uint8).reshape(-1)
-    if min(rows, pad_rows) < 0 or length < 1 or stride <= length:
-        raise ValueError(f"bad line geometry: rows {rows}, pad_rows {pad_rows}, "
-                         f"length {length}, stride {stride}")
-    if rows and raw.size < (rows - 1) * stride + length + 1:
-        raise ValueError(f"{raw.size} bytes hold fewer than {rows} lines of {stride}")
+    raw = _line_buffer(raw, rows, length, stride, pad_rows)
     out = np.empty((rows + pad_rows, length), np.uint8)
     bad = lib.bgsa_encode_lines(raw.ctypes.data, rows, length, stride, out.ctypes.data, pad_rows)
     return out, bad
+
+
+def encode_transport(raw: np.ndarray, rows: int, length: int, stride: int, pad_rows: int = 0,
+                     threads: int = 1):
+    """Native encode of the lines of ``encode_lines`` straight to the 2-bit
+    transport: (packed, row_n, n_count, bad), or None if unavailable.
+    ``packed`` is ``pack.two_bit_pack`` of the (rows + pad_rows, length)
+    codes with 'N' read as 0 (the "2bit" payload where ``n_count`` is 0,
+    the "2bitN" one's first leaf otherwise); ``row_n`` each line's 'N'
+    count, for ``list_n``; ``n_count`` the 'N's, pad rows included; ``bad``
+    as ``encode_lines``'s. One pass over the bytes, fanned out over
+    ``threads`` threads with the interpreter lock released."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    raw = _line_buffer(raw, rows, length, stride, pad_rows)
+    packed = np.empty((rows + pad_rows, -(-length // 4)), np.uint8)
+    row_n = np.empty(rows, np.int32)
+    n_count = ctypes.c_int64(0)
+    bad = lib.bgsa_encode_transport(raw.ctypes.data, rows, length, stride, packed.ctypes.data,
+                                    row_n.ctypes.data, ctypes.addressof(n_count), pad_rows,
+                                    threads)
+    return packed, row_n, n_count.value, bad
+
+
+def list_n(raw: np.ndarray, rows: int, length: int, stride: int, pad_rows: int,
+           row_n: np.ndarray, size: int) -> np.ndarray:
+    """The "2bitN" sidecar of the lines that ``encode_transport`` packed
+    without a ragged one, from its ``row_n``: (size, 2) int32 (row, column)
+    of their 'N's and the pad rows' in ``np.nonzero``'s order, then rows of
+    rows + pad_rows (``pack.sidecar_pack``'s layout, one shard). Reads only
+    the lines that hold an 'N'."""
+    lib = get_lib()
+    raw = _line_buffer(raw, rows, length, stride, pad_rows)
+    row_n = np.ascontiguousarray(row_n, dtype=np.int32)
+    n_count = int(row_n.sum(dtype=np.int64)) + pad_rows * length
+    if row_n.shape != (rows,) or n_count > size:
+        raise ValueError(f"{rows} lines with {n_count} 'N's do not fit a sidecar of {size}")
+    pos = np.full((size, 2), rows + pad_rows, np.int32)
+    lib.bgsa_list_n(raw.ctypes.data, rows, length, stride, row_n.ctypes.data, pad_rows,
+                    pos.ctypes.data)
+    return pos

@@ -198,6 +198,16 @@ def select_transport(codes: np.ndarray, allow_sidecar: bool = True,
     return "nib", nibble_pack(codes, threads)
 
 
+def sidecar_size(n_count: int, rows: int, length: int):
+    """``select_transport``'s choice at one shard, from the 'N' count of a
+    (rows, length) batch that holds some: the rows of its "2bitN" sidecar
+    (``sidecar_pack``'s, padded to ``SIDECAR_QUANT``), or None where the
+    nibble transport is the smaller."""
+    delta = rows * (-(-length // 2) - (-(-length // 4)))  # nibble bytes minus 2bit bytes
+    size = max(-(-n_count // SIDECAR_QUANT), 1) * SIDECAR_QUANT
+    return size if size * 8 <= delta else None
+
+
 def transport_width(name: str, length: int) -> int:
     """Packed bytes per subject for a transport."""
     return -(-length // 4) if name in ("2bit", "2bitN") else -(-length // 2)

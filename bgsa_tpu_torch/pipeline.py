@@ -392,7 +392,14 @@ def run_bucketed(
     v_num = config.v_num * engine.n_shards
     with Span("open", stats, "read_time"):
         queries = seqfile.read_queries(query_path)
-        db = seqfile.DatabaseReader(db_path, config.bucket_size, v_num, stats)
+        # A single host scores whole buckets, so the reader thread packs
+        # each one's transport payload; a host role slices the bucket first,
+        # and packs its slice on this thread.
+        db = seqfile.DatabaseReader(
+            db_path, config.bucket_size, v_num, stats,
+            transport_shards=engine.n_shards if shard is None else None,
+            threads=_pack_threads(config),
+        )
 
     stats.query_count, stats.query_len = queries.shape
     stats.subject_len = db.length
@@ -621,6 +628,7 @@ def run_bucketed(
                 else:
                     start, count = host_slice(bucket.count, n_hosts, host_id, v_num, shard_ratios)
                 codes = codes[start : start + count]
+                real = count
                 meta.block_counts.append(count)
                 meta.extra_counts.append(bucket.extra_count if host_id == n_hosts - 1 else 0)
                 stats.subject_count += count - meta.extra_counts[-1]
@@ -630,28 +638,31 @@ def run_bucketed(
             else:
                 events.append(("bucket", [bucket.count], bucket.extra_count))
                 stats.subject_count += bucket.count - bucket.extra_count
-            real = codes.shape[0]
+                real = bucket.count
             if dynamic:
                 t_bucket = time.perf_counter()
             if real == 0 and not dynamic:
                 continue
             if real:
                 # Host-side transport packing, once per bucket (reused across
-                # query buckets) — the analogue of the reference's pack phase,
-                # billed to mem_total_time like its *_handle_reads
-                # (cal_sse.c:469-487). Under local sharding the sidecar is
-                # pre-split into shard-local position lists (pack.sidecar_pack).
-                stats.scored_rows += codes.shape[0]
-                with Span("transport_pack", stats, "pack_time", bucket=bucket_index):
-                    transport, payload = pack.select_transport(
-                        codes, n_shards=engine.n_shards, threads=_pack_threads(config)
-                    )
+                # query buckets): the reader thread packs a whole bucket; a
+                # host role's slice is packed here — the analogue of the
+                # reference's pack phase, billed to mem_total_time like its
+                # *_handle_reads (cal_sse.c:469-487). Under local sharding the
+                # sidecar is pre-split into shard-local position lists
+                # (pack.sidecar_pack).
+                stats.scored_rows += real
+                transport, payload = bucket.transport, bucket.payload
+                if transport is None:
+                    with Span("transport_pack", stats, "pack_time", bucket=bucket_index):
+                        transport, payload = pack.select_transport(
+                            codes, n_shards=engine.n_shards, threads=_pack_threads(config)
+                        )
                 for qi, qb in enumerate(q_buckets):
                     # async: drain's fetch waits for the device
                     with Span("dispatch", stats, "cal_time", bucket=bucket_index,
                               query_bucket=qi):
-                        dev_scores = engine.scores_packed(qb, transport, payload,
-                                                          codes.shape[1])
+                        dev_scores = engine.scores_packed(qb, transport, payload, db.length)
                     stats.add_bitpal(engine.take_bitpal_counts())
                     events.append(("scores", dev_scores, real, bucket_index, qi))
                     n_pending += 1

@@ -5,11 +5,12 @@ Mirrors the reference's end-of-run report (``cal_cpu.c:459-475``):
 with cells = ref_len * ref_count * read_len * subject_count.
 
 The port's own copy of ``bgsa_tpu.stats``: the same fields, JSON and
-report, plus eight fields the reference lacks (the reader wait; the reader
-thread's read and encode seconds and the buckets its native pass encoded;
-the rows scored; the BitPAl launches' word-columns, those on the tiled
-kernel, and their largest scratch) and ``Span``, which times a phase on
-the host clock and names it in a ``torch.profiler`` trace.
+report, plus nine fields the reference lacks (the reader wait; the reader
+thread's read and encode seconds, the buckets its native pass encoded and
+those whose transport payload it packed; the rows scored; the BitPAl
+launches' word-columns, those on the tiled kernel, and their largest
+scratch) and ``Span``, which times a phase on the host clock and names it
+in a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -44,13 +45,16 @@ class RunStats:
     # The main thread's wait for the reader thread's next bucket.
     read_wait_time: float = 0.0
     # The database reader's wall seconds (waits for the interpreter lock
-    # included): file reads; the newline check, 'N' pads and encoding. And
-    # the buckets that native.encode_lines encoded (the rest took numpy).
-    # In run_bucketed only the reader thread writes them, and the main
-    # thread reads them after joining it.
+    # included): file reads; the newline check, 'N' pads, encoding and, where
+    # the reader packs, transport packing. The buckets that the native
+    # library encoded (the rest took numpy), and those whose transport
+    # payload its pass built straight from the file's bytes
+    # (native.encode_transport). In run_bucketed only the reader thread
+    # writes them, and the main thread reads them after joining it.
     reader_read_time: float = 0.0
     reader_encode_time: float = 0.0
     reader_native_buckets: int = 0
+    reader_packed_buckets: int = 0
     # Subject rows handed to the engine, once per database bucket: the real
     # subjects plus the reference's 'N' lane pads (run_bucketed adds no
     # shape pad).

@@ -4,7 +4,9 @@ Every phase of the bucketed driver and of the engines appears in a
 ``torch.profiler`` trace once per bucket or query bucket, the engines'
 spans inside ``bgsa.dispatch``; each driver span's summed duration agrees
 with the ``RunStats`` field it bills; the reader wait, the reader's own
-seconds and the rows scored are counted; ``align()`` names its phases.
+seconds, the buckets it packed and the rows scored are counted; a single
+host's main thread packs nothing, a host role's packs its slice of each
+bucket; ``align()`` names its phases.
 """
 
 import gc
@@ -29,17 +31,17 @@ CONFIG = PipelineConfig(bucket_size=256 * (LEN + 1))
 BUCKETS, QUERY_BUCKETS = 3, 2
 
 RUNS = {
-    "myers": lambda q, d, r: run_alignment(q, d, r, config=CONFIG, device="cpu"),
-    "bitpal": lambda q, d, r: run_alignment(q, d, r, Scoring(2, -3, -5), config=CONFIG,
-                                            device="cpu"),
-    "banded": lambda q, d, r: run_banded(q, d, r, 4, CONFIG, device="cpu"),
+    "myers": lambda q, d, r, **kw: run_alignment(q, d, r, config=CONFIG, device="cpu", **kw),
+    "bitpal": lambda q, d, r, **kw: run_alignment(q, d, r, Scoring(2, -3, -5), config=CONFIG,
+                                                  device="cpu", **kw),
+    "banded": lambda q, d, r, **kw: run_banded(q, d, r, 4, CONFIG, device="cpu", **kw),
 }
 PACKER = {"myers": "eq_pack", "bitpal": "eq_pack", "banded": "stream_pack"}
 ENGINE_SPANS = ("upload", "unpack", "kernel", "narrow")
-# driver span -> the RunStats field it bills
+# driver span -> the RunStats field it bills; a host role's main thread
+# also packs its slice of each bucket, in bgsa.transport_pack (pack_time)
 BILLS = {"open": "read_time", "warm": "compile_time", "read_wait": "read_wait_time",
-         "transport_pack": "pack_time", "dispatch": "cal_time", "fetch": "cal_time",
-         "write": "write_time"}
+         "dispatch": "cal_time", "fetch": "cal_time", "write": "write_time"}
 
 
 def write_inputs(directory, queries=QUERIES):
@@ -59,10 +61,8 @@ def bgsa_events(prof, path) -> list:
             if e.get("ph") == "X" and e.get("name", "").startswith("bgsa.")]
 
 
-@pytest.fixture(scope="module", params=sorted(RUNS))
-def traced(request, tmp_path_factory):
-    """(family, RunStats, spans, database path) of one traced multi-bucket run."""
-    tmp = tmp_path_factory.mktemp(request.param)
+def traced_run(family, tmp, **kw):
+    """(the run's result, spans, database path) of one traced multi-bucket run."""
     q, d = write_inputs(tmp)
     # A span reads the clock a few microseconds before its range's time
     # stamp. A collection of this process's heap (torch and jax loaded), or
@@ -74,11 +74,18 @@ def traced(request, tmp_path_factory):
     sys.setswitchinterval(1.0)
     try:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            stats = RUNS[request.param](q, d, str(tmp / "r.bin"))
+            got = RUNS[family](q, d, str(tmp / "r.bin"), **kw)
     finally:
         sys.setswitchinterval(interval)
         gc.enable()
-    return request.param, stats, bgsa_events(prof, tmp / "trace.json"), d
+    return got, bgsa_events(prof, tmp / "trace.json"), d
+
+
+@pytest.fixture(scope="module", params=sorted(RUNS))
+def traced(request, tmp_path_factory):
+    """(family, RunStats, spans, database path) of one traced single-host run."""
+    stats, spans, d = traced_run(request.param, tmp_path_factory.mktemp(request.param))
+    return request.param, stats, spans, d
 
 
 def test_every_span_once_per_bucket_or_query_bucket(traced):
@@ -87,9 +94,9 @@ def test_every_span_once_per_bucket_or_query_bucket(traced):
     for name, _, _ in spans:
         counts[name] = counts.get(name, 0) + 1
     per_dispatch = BUCKETS * QUERY_BUCKETS
+    # no bgsa.transport_pack: the reader thread packs every bucket
     want = {"engine": 1, "open": 1, "warm": 1, "close": 1,
             "read_wait": BUCKETS + 1,  # the last get() takes the end-of-file mark
-            "transport_pack": BUCKETS,
             "dispatch": per_dispatch, "fetch": per_dispatch, "write": per_dispatch,
             PACKER[family]: per_dispatch, **{n: per_dispatch for n in ENGINE_SPANS}}
     assert counts == want
@@ -110,6 +117,21 @@ def test_driver_spans_match_their_run_stats_fields(traced):
         mine = [(t1 - t0) * 1e-6 for name, t0, t1 in spans if BILLS.get(name) == field]
         assert mine, field
         assert abs(sum(mine) - getattr(stats, field)) <= 2e-3 * len(mine), field
+    assert stats.pack_time == 0  # the main thread packed nothing
+
+
+@pytest.mark.parametrize("family", sorted(RUNS))
+def test_a_host_role_packs_each_slice_on_the_main_thread(tmp_path, family):
+    """A ``--host`` role slices each bucket after the reader hands it over,
+    so the reader encodes codes, and the main thread packs the slice in one
+    bgsa.transport_pack a bucket, billed to pack_time."""
+    (stats, meta), spans, _ = traced_run(family, tmp_path, shard=(1, 2))
+    packs = [(t1 - t0) * 1e-6 for name, t0, t1 in spans if name == "transport_pack"]
+    assert meta.block_counts == [128, 128, 128] and meta.extra_counts == [0, 0, 40]
+    assert len(packs) == BUCKETS and stats.pack_time > 0
+    assert abs(sum(packs) - stats.pack_time) <= 2e-3 * len(packs)
+    assert stats.reader_packed_buckets == 0 and stats.reader_native_buckets == BUCKETS
+    assert stats.scored_rows == 3 * 128 and stats.subject_count == 128 + 128 + 88
 
 
 def test_scored_rows_match_the_bucket_layout(traced):
@@ -121,8 +143,13 @@ def test_scored_rows_match_the_bucket_layout(traced):
     assert stats.scored_rows == sum(c for c, _ in db.bucket_counts()) == 256 + 256 + 128
     assert stats.reader_read_time > 0 and stats.reader_encode_time > 0
     assert stats.reader_read_time + stats.reader_encode_time < stats.total_time
+    # the reader's native pass packed the two full buckets ("2bit"); the
+    # tail's 40 'N' lane pads are too many for a sidecar at 24 bp, so the
+    # reader encoded its codes and packed them "nib" (select_transport)
+    assert stats.reader_native_buckets == BUCKETS and stats.reader_packed_buckets == BUCKETS - 1
     written = json.loads(stats.to_json())  # what --stats-json writes
-    for key in ("read_wait_time", "reader_read_time", "reader_encode_time", "scored_rows"):
+    for key in ("read_wait_time", "reader_read_time", "reader_encode_time", "scored_rows",
+                "reader_packed_buckets"):
         assert written[key] == getattr(stats, key)
 
 
