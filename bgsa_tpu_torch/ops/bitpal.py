@@ -41,7 +41,7 @@ import dataclasses
 import torch
 
 from ..pack import CHAR_NUM, word_count
-from ..stats import Span
+from ..stats import LaunchCounts, Span
 
 WORD_BITS = 31
 INT32_MIN = -(1 << 31)
@@ -81,17 +81,6 @@ class BitpalParams:
     @property
     def values(self):
         return range(self.minv, self.maxv + 1)
-
-
-@dataclasses.dataclass
-class LaunchCounts:
-    """What a caller's BitPAl launches ran: word-columns (Q x m x W x S) in
-    all and on the tiled kernel, and the largest device scratch that one
-    launch allocated, in bytes."""
-
-    word_columns: int = 0
-    tiled_word_columns: int = 0
-    scratch_peak_bytes: int = 0
 
 
 def word_mask(word_bits: int) -> int:
@@ -506,9 +495,5 @@ def launch(kernel: str, p: BitpalParams, planes: int, eq, queries, *, read_len, 
         )
     kernels.check(rc, kernel)
     if counts is not None:
-        word_columns = Q * m * W * S
-        counts.word_columns += word_columns
-        counts.tiled_word_columns += word_columns if tiled else 0
-        if scratch is not None:
-            counts.scratch_peak_bytes = max(counts.scratch_peak_bytes, scratch.nbytes)
+        counts.add("bitpal", Q * m * W * S, tiled, 0 if scratch is None else scratch.nbytes)
     return out

@@ -22,8 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from .bitpal import (WORD_BITS, BitpalParams, LaunchCounts, _check, add_carry, bit,
-                     carry_layout, launch, popcount, valid_masks, word_major_ref, word_mask)
+from ..stats import LaunchCounts
+from .bitpal import (WORD_BITS, BitpalParams, _check, add_carry, bit, carry_layout, launch,
+                     popcount, valid_masks, word_major_ref, word_mask)
 
 # Kernel launches made by ``bitpal_packed`` (CUDA tensors only).
 LAUNCHES = 0

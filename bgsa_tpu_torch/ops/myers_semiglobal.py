@@ -16,7 +16,10 @@ Past its register bound (``reg_words``, 32 words) the kernel runs the words
 in strips of 32, one strip after another over every column, and passes each
 column's hp/hn carries from strip to strip packed 32 columns to a word
 (``STRIP_LAUNCHES``); on few pairs (``strip_wave``) a group of 32 subjects'
-strips run as a wavefront over four warps (``WAVE_LAUNCHES``).
+strips run as a wavefront over four warps (``WAVE_LAUNCHES``). Each launch
+runs in a profiler range named by its route, ``bgsa.myers_regs``,
+``bgsa.myers_strips`` or ``bgsa.myers_strips_wave``, and adds its
+word-columns and carry buffer to the caller's ``stats.LaunchCounts``.
 ``myers_strip_ref`` is a plain model of the strips' schedule, for the
 tests only.
 """
@@ -26,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..pack import CHAR_NUM, word_count
+from ..stats import LaunchCounts, Span
 
 WORD_BITS = 32
 CARRY_BATCH = 32  # query columns one carry word holds
@@ -177,12 +181,12 @@ def myers_strip_ref(eq, queries, *, read_len: int, factor: int = -1, is_global: 
 
 
 def myers_semiglobal(eq, queries, *, read_len: int, factor: int = -1,
-                     is_global: bool = False):
+                     is_global: bool = False, counts: LaunchCounts | None = None):
     """(5, W, S) int32 Eq words x (Q, m) query codes -> (Q, S) int32 scores.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (and
-    raise if it cannot launch). Query codes outside 0..4 match nothing in
-    the kernel.
+    raise if it cannot launch), adding to ``counts`` where it is given.
+    Query codes outside 0..4 match nothing in the kernel.
     """
     C, W, S = eq.shape
     if C != CHAR_NUM or eq.dtype != torch.int32:
@@ -197,10 +201,15 @@ def myers_semiglobal(eq, queries, *, read_len: int, factor: int = -1,
         )
     if eq.device.type != "cuda":
         raise ValueError(f"no myers_semiglobal for device {eq.device}")
-    return _launch(eq, queries, read_len=read_len, factor=factor, is_global=is_global)
+    return _launch(eq, queries, read_len=read_len, factor=factor, is_global=is_global,
+                   counts=counts)
 
 
-def _launch(eq, queries, *, read_len, factor, is_global):
+def _launch(eq, queries, *, read_len, factor, is_global, counts=None):
+    """Launch the kernel on CUDA tensors: ``myers_regs<W>`` up to the
+    register bound, past it the strips on one warp a group or as a
+    wavefront, each in a ``bgsa.<route>`` range, with the word-columns and
+    the (2, carry_words(m), Q, S) carry buffer added to ``counts``."""
     global LAUNCHES, STRIP_LAUNCHES, WAVE_LAUNCHES
     from . import build
 
@@ -217,7 +226,8 @@ def _launch(eq, queries, *, read_len, factor, is_global):
         carries = torch.empty((2, carry_words(m), Q, S), dtype=torch.int32, device=eq.device)
         wave = strip_wave(
             Q, S, m, torch.cuda.get_device_properties(eq.device).multi_processor_count)
-    with torch.cuda.device(eq.device):
+    route = "myers_regs" if carries is None else "myers_strips_wave" if wave else "myers_strips"
+    with Span(route), torch.cuda.device(eq.device):
         stream = torch.cuda.current_stream(eq.device).cuda_stream
         rc = kernels.lib.bgsa_myers_semiglobal(
             eq.data_ptr(), q.data_ptr(), out.data_ptr(),
@@ -225,6 +235,9 @@ def _launch(eq, queries, *, read_len, factor, is_global):
             Q, m, W, S, read_len, factor, int(is_global), int(wave), stream,
         )
     kernels.check(rc, "myers_semiglobal")
+    if counts is not None:
+        counts.add("myers", Q * m * W * S, carries is not None,
+                   0 if carries is None else carries.nbytes)
     LAUNCHES += 1
     STRIP_LAUNCHES += carries is not None and not wave
     WAVE_LAUNCHES += wave

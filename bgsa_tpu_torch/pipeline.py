@@ -6,7 +6,7 @@ writer, host-role shard files, ``-D`` and resume; each bucket is scored at
 its own row count, with no shape pad), with the port's ``PipelineConfig``.
 It drives an ``Engine`` (or a subclass such as
 ``banded_pipeline.BandedEngine``): ``warm`` once before the first bucket,
-then ``scores_packed`` and ``take_bitpal_counts`` for each query bucket.
+then ``scores_packed`` and ``take_counts`` for each query bucket.
 This module supplies the engine: the host packs each bucket
 (``pack.select_transport``), the payload is uploaded, unpacked and
 Eq-packed on the device, and the scheme's kernel scores it: the Myers
@@ -36,11 +36,11 @@ from . import pack
 from .io import result as result_io
 from .io import seqfile
 from .ops import build
-from .ops.bitpal import BitpalParams, LaunchCounts, bitpal
+from .ops.bitpal import BitpalParams, bitpal
 from .ops.bitpal_packed import bitpal_packed, packed_supported
 from .ops.myers_semiglobal import myers_semiglobal
 from .schemes import (Algorithm, Mode, NormalizedScheme, Scoring, check_type, normalize)
-from .stats import RunStats, Span
+from .stats import LaunchCounts, RunStats, Span
 
 # Default database bucket: a quarter of the reference's READ_BUCKET_SIZE, as
 # in bgsa_tpu, so that result and .info files (whose blocking follows the
@@ -221,11 +221,11 @@ class Engine:
                     raise ValueError(f"unsupported device {d}")
         self.device = self.devices[0]
         self.n_shards = len(self.devices)
-        self.bitpal_counts = LaunchCounts()
+        self.counts = LaunchCounts()
 
-    def take_bitpal_counts(self) -> LaunchCounts:
-        """The BitPAl launches' counts since the last call, which resets them."""
-        counts, self.bitpal_counts = self.bitpal_counts, LaunchCounts()
+    def take_counts(self) -> LaunchCounts:
+        """The kernel launches' counts since the last call, which resets them."""
+        counts, self.counts = self.counts, LaunchCounts()
         return counts
 
     def warm(self) -> None:
@@ -257,13 +257,13 @@ class Engine:
             if s.algorithm is Algorithm.MYERS:
                 return myers_semiglobal(
                     eq, queries, read_len=codes.shape[1], factor=s.factor,
-                    is_global=s.mode is Mode.GLOBAL,
+                    is_global=s.mode is Mode.GLOBAL, counts=self.counts,
                 )
             kernel = bitpal_packed if self.kernel == "bitpal_packed" else bitpal
             return kernel(eq, queries, match=s.match, mismatch=s.mismatch, gap=s.gap,
                           read_len=codes.shape[1], factor=s.factor,
                           semi_global=s.mode is Mode.SEMI_GLOBAL, word_bits=word_bits,
-                          counts=self.bitpal_counts)
+                          counts=self.counts)
 
     def scores_packed(self, query_codes: np.ndarray, transport: str, payload, s_len: int):
         """Score a transport-packed subject batch (``pack.select_transport``
@@ -375,7 +375,7 @@ def run_bucketed(
     score, its ``warm()`` runs once, billed to compile_time, before the
     reader thread starts; then each bucket (or this host's slice of it) is
     transport-packed once and scored by ``scores_packed`` for each query
-    bucket, with ``take_bitpal_counts()`` added to the stats after each.
+    bucket, with ``take_counts()`` added to the stats after each.
     Handles bucketing, the reader prefetch thread, lag-1 result draining,
     reference result/.info writing, host-role shard files, dynamic
     re-splitting (-D), and resume for both modes.
@@ -663,7 +663,7 @@ def run_bucketed(
                     with Span("dispatch", stats, "cal_time", bucket=bucket_index,
                               query_bucket=qi):
                         dev_scores = engine.scores_packed(qb, transport, payload, db.length)
-                    stats.add_bitpal(engine.take_bitpal_counts())
+                    stats.add_launches(engine.take_counts())
                     events.append(("scores", dev_scores, real, bucket_index, qi))
                     n_pending += 1
                     drain(1)

@@ -5,12 +5,14 @@ Mirrors the reference's end-of-run report (``cal_cpu.c:459-475``):
 with cells = ref_len * ref_count * read_len * subject_count.
 
 The port's own copy of ``bgsa_tpu.stats``: the same fields, JSON and
-report, plus nine fields the reference lacks (the reader wait; the reader
+report, plus twelve fields the reference lacks (the reader wait; the reader
 thread's read and encode seconds, the buckets its native pass encoded and
 those whose transport payload it packed; the rows scored; the BitPAl
 launches' word-columns, those on the tiled kernel, and their largest
-scratch) and ``Span``, which times a phase on the host clock and names it
-in a ``torch.profiler`` trace.
+scratch; the Myers launches' word-columns, those on the strip kernels, and
+their largest carry buffer), ``LaunchCounts``, which a launcher fills and
+``RunStats.add_launches`` adds to its family's fields, and ``Span``, which
+times a phase on the host clock and names it in a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -19,6 +21,37 @@ import dataclasses
 import time
 
 import torch
+
+# The RunStats fields that a kernel family's LaunchCounts add to: its
+# word-columns, those past the register bound, and its largest buffer.
+LAUNCH_FIELDS = {
+    "bitpal": ("bitpal_word_columns", "bitpal_tiled_word_columns", "bitpal_scratch_peak_bytes"),
+    "myers": ("myers_word_columns", "myers_strip_word_columns", "myers_carry_peak_bytes"),
+}
+
+
+@dataclasses.dataclass
+class LaunchCounts:
+    """What a caller's launches of one kernel family (a key of
+    ``LAUNCH_FIELDS``) ran: word-columns (Q x m x W x S) in all and on the
+    family's kernel past its register bound (BitPAl's tiled kernel, Myers'
+    strips), and the largest device buffer that one launch allocated
+    (BitPAl's scratch, Myers' carries), in bytes. ``family`` is None until
+    a launch is counted."""
+
+    family: str | None = None
+    word_columns: int = 0
+    wide_word_columns: int = 0
+    buffer_peak_bytes: int = 0
+
+    def add(self, family: str, word_columns: int, wide: bool, buffer_bytes: int = 0) -> None:
+        """Count one launch of ``family``'s kernels."""
+        if self.family not in (None, family):
+            raise ValueError(f"a {family} launch counted with {self.family} launches")
+        self.family = family
+        self.word_columns += word_columns
+        self.wide_word_columns += word_columns if wide else 0
+        self.buffer_peak_bytes = max(self.buffer_peak_bytes, buffer_bytes)
 
 
 @dataclasses.dataclass
@@ -59,12 +92,18 @@ class RunStats:
     # subjects plus the reference's 'N' lane pads (run_bucketed adds no
     # shape pad).
     scored_rows: int = 0
-    # BitPAl launches on the card, once a dispatch (ops.bitpal.LaunchCounts):
+    # BitPAl launches on the card, once a dispatch (LaunchCounts):
     # word-columns (Q x m x W x S) in all and on the tiled kernel, and the
     # largest device scratch one launch allocated, in bytes.
     bitpal_word_columns: int = 0
     bitpal_tiled_word_columns: int = 0
     bitpal_scratch_peak_bytes: int = 0
+    # Myers launches on the card, once a dispatch (LaunchCounts):
+    # word-columns (Q x m x W x S) in all and on the strip kernels, and the
+    # largest carry buffer one launch allocated, in bytes.
+    myers_word_columns: int = 0
+    myers_strip_word_columns: int = 0
+    myers_carry_peak_bytes: int = 0
 
     @property
     def cells(self) -> int:
@@ -73,12 +112,15 @@ class RunStats:
     def gcups(self, seconds: float) -> float:
         return self.cells / seconds / 1e9 if seconds > 0 else float("inf")
 
-    def add_bitpal(self, counts) -> None:
-        """Add one dispatch's ``ops.bitpal.LaunchCounts``."""
-        self.bitpal_word_columns += counts.word_columns
-        self.bitpal_tiled_word_columns += counts.tiled_word_columns
-        self.bitpal_scratch_peak_bytes = max(self.bitpal_scratch_peak_bytes,
-                                             counts.scratch_peak_bytes)
+    def add_launches(self, counts: LaunchCounts) -> None:
+        """Add one dispatch's ``LaunchCounts`` to its family's fields (none
+        where no launch was counted)."""
+        if counts.family is None:
+            return
+        total, wide, peak = LAUNCH_FIELDS[counts.family]
+        setattr(self, total, getattr(self, total) + counts.word_columns)
+        setattr(self, wide, getattr(self, wide) + counts.wide_word_columns)
+        setattr(self, peak, max(getattr(self, peak), counts.buffer_peak_bytes))
 
     def to_json(self) -> str:
         import json

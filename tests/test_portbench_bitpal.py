@@ -20,10 +20,9 @@ import pytest
 import torch
 
 from bgsa_tpu_torch import cli, oracle
-from bgsa_tpu_torch.ops.bitpal import LaunchCounts
 from bgsa_tpu_torch.pipeline import Engine, PipelineConfig, run_alignment
 from bgsa_tpu_torch.schemes import Mode, Scoring, normalize
-from bgsa_tpu_torch.stats import RunStats
+from bgsa_tpu_torch.stats import LaunchCounts, RunStats
 from portbench import control, core, reference_scored, roofline_bitpal
 from portbench.tests.test_portbench_control import altered, half_left_out
 from portbench.trace import JOB_SPAN, Trace
@@ -172,10 +171,8 @@ def test_launch_counts_reach_run_stats(tmp_path, monkeypatch):
 
     def counting(self, queries, codes):
         calls.append(len(calls))
-        self.bitpal_counts.word_columns += 10
-        self.bitpal_counts.tiled_word_columns += 4
-        self.bitpal_counts.scratch_peak_bytes = max(self.bitpal_counts.scratch_peak_bytes,
-                                                    100 * len(calls))
+        self.counts.add("bitpal", 4, True, 100 * len(calls))
+        self.counts.add("bitpal", 6, False)
         return score_codes(self, queries, codes)
 
     myers = run_alignment(q, d, str(tmp_path / "m.bin"), config=config, device="cpu")
@@ -192,8 +189,9 @@ def test_launch_counts_reach_run_stats(tmp_path, monkeypatch):
 
 def test_run_stats_add_bitpal():
     stats = RunStats()
-    stats.add_bitpal(LaunchCounts(7, 3, 500))
-    stats.add_bitpal(LaunchCounts(5, 0, 200))
+    stats.add_launches(LaunchCounts("bitpal", 7, 3, 500))
+    stats.add_launches(LaunchCounts("bitpal", 5, 0, 200))
+    stats.add_launches(LaunchCounts())  # a dispatch that launched nothing
     assert (stats.bitpal_word_columns, stats.bitpal_tiled_word_columns,
             stats.bitpal_scratch_peak_bytes) == (12, 3, 500)
 
@@ -221,13 +219,14 @@ def test_packed_route_on_the_card(cuda, tmp_path, n, words, tiled):
     engine = Engine(normalize(Scoring(2, -3, -5), Mode.GLOBAL), PipelineConfig(), cuda)
     assert engine.kernel == "bitpal_packed" and engine.word_bits == 31
     np.asarray(engine.scores(queries, subjects))  # the library built and warm
-    engine.take_bitpal_counts()
+    engine.take_counts()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         got = np.asarray(engine.scores(queries, subjects))
-    counts = engine.take_bitpal_counts()
+    counts = engine.take_counts()
+    assert counts.family == "bitpal"
     assert counts.word_columns == Q * n * words * S
-    assert counts.tiled_word_columns == (counts.word_columns if tiled else 0)
-    assert counts.scratch_peak_bytes == (5 * words * Q * S * 4 if tiled else 0)
+    assert counts.wide_word_columns == (counts.word_columns if tiled else 0)
+    assert counts.buffer_peak_bytes == (5 * words * Q * S * 4 if tiled else 0)
 
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     with open(tmp_path / "trace.json") as f:

@@ -153,11 +153,12 @@ def test_run_stats_json_and_report():
     got_json, want_json = json.loads(got.to_json()), json.loads(want.to_json())
     assert {key: got_json[key] for key in want_json} == want_json
     # the port's own fields: the reader wait, the reader's seconds, native
-    # and packed buckets, the rows scored, the BitPAl launch counters
+    # and packed buckets, the rows scored, the BitPAl and Myers launch counters
     assert set(got_json) - set(want_json) == {
         "read_wait_time", "reader_read_time", "reader_encode_time", "reader_native_buckets",
         "reader_packed_buckets", "scored_rows", "bitpal_word_columns", "bitpal_tiled_word_columns",
-        "bitpal_scratch_peak_bytes"}
+        "bitpal_scratch_peak_bytes", "myers_word_columns", "myers_strip_word_columns",
+        "myers_carry_peak_bytes"}
     assert got.report() == want.report() and got.cells == want.cells
 
 
