@@ -12,41 +12,57 @@
 //
 // What bounds it: the column recurrence is a serial chain of integer ALU
 // operations. myers_word() below is 20 operations per word per column as
-// written (9 or, 3 and, 1 xor, 1 add, 2 not, 2 shl, 2 shr), plus the Eq
-// load and its mask; the compiler may fold not/or/and triples into
-// three-input LOP3s. One 4-byte Eq word (mostly an L2 hit: a bucket's Eq
-// planes are reread by every query) feeds those ~20 operations, so the
-// kernel is bound by int32 issue rate and dependency latency, not by bytes.
-// Past kRegWords words the bound is the same network's: the register
-// instance's cost per word, for every word-column. wgmma and TMA do not
-// apply.
+// written (9 or, 3 and, 1 xor, 1 add, 2 not, 2 shl, 2 shr); the compiler
+// may fold not/or/and triples into three-input LOP3s. Each word-column
+// reads one 4-byte Eq word, and the same words are read at every column of
+// every query: where that read is a global load (an L2 hit at a runtime
+// stride, with its 64-bit address arithmetic) it adds issue slots and the
+// chain waits on L2's latency. So up to kRegWords words (myers_regs<W>) a
+// block stages its tile's Eq words in shared memory once and reads every
+// word-column there, at an offset fixed at compile time, which leaves the
+// kernel bound by int32 issue rate and dependency latency. Past kRegWords
+// words the bound is the same network's: the register instance's cost per
+// word, for every word-column. wgmma and TMA do not apply.
 //
 // Design (simple first):
-//   * one thread per (query, subject) pair: blockIdx.y walks queries,
-//     blockIdx.x * blockDim.x + threadIdx.x is the subject, masked at S;
-//   * Eq is read as eq[c][w][s], so neighbouring threads read neighbouring
-//     words;
-//   * the query row is staged through shared memory in chunks of
-//     kQueryChunk codes, so any query length fits;
-//   * pv/mv live in registers: for W <= kRegWords all W words
-//     (myers_regs<MAXW>); past it the words run in strips of kRegWords
-//     (the last may be narrower), one strip after another over every
-//     column (myers_strips), each strip's pv/mv in registers from its first
-//     column to its last. A column's horizontal carries out of a strip's
-//     last word are the next strip's input at that column: every strip but
-//     the last packs them into one hp and one hn word per 32 columns in a
-//     caller-allocated carry buffer (2, ceil(m / 32), Q, S), which the next
-//     strip reads back in place; only the last strip moves the score. On
-//     few pairs (the caller's choice: where one warp a group of 32
-//     subjects would leave the SMs thin) the strips of a group run as a
-//     wavefront over a block's four warps (myers_strips_wave), one batch of
-//     32 columns a step, a barrier after each step, its query codes read a
-//     batch at a time, one a lane, and shuffled out;
+//   * up to kRegWords words (myers_regs<W>, one instance for each W): a
+//     block owns a tile of kTile = 32 subjects, one a lane. It copies their
+//     (5, W, kTile) Eq words from the (5, W, S) input into shared memory
+//     once, coalesced, with a sixth plane of zeros that query codes outside
+//     0..4 read (lanes past S read zeros and store nothing). Then each of
+//     its warps runs one query at a time over the tile, the block's warps
+//     taking the queries of its chunk in turn: after the tile's one barrier
+//     a warp stages its own query row in shared memory with warp
+//     synchronization only. A column picks its plane once from the query
+//     code; word j is then a shared-memory load at a fixed offset, with no
+//     mask and no bound test. The chunk is the most whole kWarps queries
+//     that still leave the grid kBlocksPerSm blocks on every SM (regs_chunk);
+//   * past kRegWords, one thread per (query, subject) pair: blockIdx.y walks
+//     queries, blockIdx.x * blockDim.x + threadIdx.x is the subject, masked
+//     at S; Eq is read as eq[c][w][s], so neighbouring threads read
+//     neighbouring words; the query row is staged through shared memory in
+//     chunks of kQueryChunk codes, so any query length fits. The words run
+//     in strips of kRegWords (the last may be narrower), one strip after
+//     another over every column (myers_strips), each strip's pv/mv in
+//     registers from its first column to its last. A column's horizontal
+//     carries out of a strip's last word are the next strip's input at that
+//     column: every strip but the last packs them into one hp and one hn
+//     word per 32 columns in a caller-allocated carry buffer (2, ceil(m /
+//     32), Q, S), which the next strip reads back in place; only the last
+//     strip moves the score. On few pairs (the caller's choice: where one
+//     warp a group of 32 subjects would leave the SMs thin) the strips of a
+//     group run as a wavefront over a block's four warps
+//     (myers_strips_wave), one batch of 32 columns a step, a barrier after
+//     each step, its query codes read a batch at a time, one a lane, and
+//     shuffled out;
 //   * query codes outside 0..4 match nothing (no out-of-range Eq reads).
 // The launch uses the caller's stream, allocates nothing and does not
 // synchronize; the C entry point returns cudaGetLastError().
 
+#include <algorithm>
 #include <cstdint>
+#include <utility>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -61,6 +77,9 @@ constexpr int kRegWords = 32;
 constexpr int kBatch = 32;  // columns a carry word holds
 static_assert(kBatch == kLanes, "a lane holds one column's query code of a batch");
 constexpr int kMaxGridY = 65535;
+constexpr int kTile = kLanes;       // subjects a myers_regs block: one a lane
+constexpr int kPlanes = kChars + 1; // the tile's planes: A, C, G, T, N, then zeros
+constexpr int kBlocksPerSm = 128;   // myers_regs blocks a grid leaves every SM, at least
 
 // One word of one column. pv/mv: this word's vertical state; hp/hn: the
 // incoming horizontal delta planes, replaced by the outgoing ones; ph/mh:
@@ -95,20 +114,36 @@ __device__ __forceinline__ int score_delta(uint32_t ph, uint32_t mh, int last_sh
   return static_cast<int>((ph >> last_shift) & 1u) - static_cast<int>((mh >> last_shift) & 1u);
 }
 
-template <int MAXW>
-__global__ void __launch_bounds__(kThreads)
+// Up to kRegWords words: a block's warps run the queries q0 + warp,
+// q0 + warp + kWarps, ... of its chunk [q0, q0 + chunk) (blockIdx.y picks
+// it) over its tile of kTile subjects (blockIdx.x), all W words of a
+// pair's pv/mv in registers. At least one block per SM is all the launch
+// bounds ask: with no minimum, ptxas kept some instances under a register
+// count by spilling a few bytes of the query loop's state.
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1)
 myers_regs(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ queries,
-           int32_t* __restrict__ out, int Q, int m, int W, int S,
-           int read_len, int factor, int is_global) {
-  __shared__ uint8_t qs[kQueryChunk];
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+           int32_t* __restrict__ out, int Q, int m, int S, int read_len, int factor,
+           int is_global, int chunk) {
+  __shared__ uint32_t tile[kPlanes * W * kTile];  // [plane][word][lane]
+  __shared__ uint8_t rows[kWarps][kQueryChunk];
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int s0 = blockIdx.x * kTile;
+  const int s = s0 + lane;
   const bool active = s < S;
+  for (int i = threadIdx.x; i < kPlanes * W * kTile; i += kThreads) {
+    const int row = i / kTile, t = s0 + i % kTile;  // row: plane * W + word
+    tile[i] = row < kChars * W && t < S ? eq[static_cast<size_t>(row) * S + t] : 0u;
+  }
+  __syncthreads();  // the block's only barrier: a warp out of queries holds none
   const int last_shift = (read_len - 1) % kWordBits;
-  const size_t plane = static_cast<size_t>(W) * S;
-  for (int q = blockIdx.y; q < Q; q += gridDim.y) {
-    uint32_t pv[MAXW], mv[MAXW];
+  uint8_t* const qs = rows[warp];
+  const int q0 = blockIdx.y * chunk, end = q0 + min(chunk, Q - q0);
+  for (int q = q0 + warp; q < end; q += kWarps) {
+    const uint8_t* const query = queries + static_cast<size_t>(q) * m;
+    uint32_t pv[W], mv[W];
 #pragma unroll
-    for (int j = 0; j < MAXW; ++j) {
+    for (int j = 0; j < W; ++j) {
       pv[j] = 0xFFFFFFFFu;
       mv[j] = 0u;
     }
@@ -116,19 +151,15 @@ myers_regs(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ queries,
     int min_score = read_len;
     for (int c0 = 0; c0 < m; c0 += kQueryChunk) {
       const int n = min(kQueryChunk, m - c0);
-      stage_query(qs, queries + static_cast<size_t>(q) * m, c0, n);
-      if (!active) continue;
+      __syncwarp();  // every lane is done with the previous row
+      for (int i = lane; i < n; i += kLanes) qs[i] = query[c0 + i];
+      __syncwarp();
       for (int i = 0; i < n; ++i) {
-        const int c = qs[i];
-        const uint32_t keep = c < kChars ? 0xFFFFFFFFu : 0u;
-        const uint32_t* eq_c = eq + static_cast<size_t>(min(c, kChars - 1)) * plane + s;
+        const uint32_t* const eq_c = tile + min(static_cast<int>(qs[i]), kChars) * (W * kTile)
+                                     + lane;
         uint32_t hp = is_global ? 1u : 0u, hn = 0u, ph = 0u, mh = 0u;
 #pragma unroll
-        for (int j = 0; j < MAXW; ++j) {
-          if (j < W) {
-            myers_word(eq_c[static_cast<size_t>(j) * S] & keep, pv[j], mv[j], hp, hn, ph, mh);
-          }
-        }
+        for (int j = 0; j < W; ++j) myers_word(eq_c[j * kTile], pv[j], mv[j], hp, hn, ph, mh);
         score += score_delta(ph, mh, last_shift);  // ph/mh of word W-1
         if (!is_global) min_score = min(min_score, score);
       }
@@ -290,12 +321,32 @@ myers_strips_wave(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ q
   }
 }
 
-template <int MAXW>
-void launch_regs(dim3 grid, cudaStream_t stream, const uint32_t* eq, const uint8_t* queries,
-                 int32_t* out, int Q, int m, int W, int S, int read_len, int factor,
-                 int is_global) {
-  myers_regs<MAXW><<<grid, kThreads, 0, stream>>>(eq, queries, out, Q, m, W, S, read_len,
-                                                  factor, is_global);
+using RegsKernel = void (*)(const uint32_t*, const uint8_t*, int32_t*, int, int, int, int, int,
+                            int, int);
+
+// myers_regs<W>, for W = 1 .. kRegWords.
+template <int... I>
+RegsKernel regs_kernel(int W, std::integer_sequence<int, I...>) {
+  static const RegsKernel kernels[] = {&myers_regs<I + 1>...};
+  return kernels[W - 1];
+}
+
+// Queries a myers_regs block walks over its tile: the most whole kWarps
+// queries that still leave the grid kBlocksPerSm blocks on every SM of the
+// current device (all of Q where the tiles alone do, kWarps where even
+// that falls short), and no fewer than keep the grid's rows of chunks
+// within kMaxGridY.
+int regs_chunk(int Q, int tiles) {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+    sms = 0;
+  }
+  const long long quads = (static_cast<long long>(Q) + kWarps - 1) / kWarps;
+  const long long wanted = static_cast<long long>(kBlocksPerSm) * sms;
+  const long long rows = std::min({quads, static_cast<long long>(kMaxGridY),
+                                   std::max(1LL, (wanted + tiles - 1) / tiles)});
+  return static_cast<int>(kWarps * ((quads + rows - 1) / rows));
 }
 
 }  // namespace
@@ -318,24 +369,18 @@ int bgsa_myers_semiglobal(const void* eq, const void* queries, void* out, void* 
                           int Q, int m, int W, int S, int read_len, int factor,
                           int is_global, int wave, void* stream) {
   if (Q <= 0 || S <= 0 || W <= 0 || m < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + kThreads - 1) / kThreads, Q < kMaxGridY ? Q : kMaxGridY);
   const auto* e = static_cast<const uint32_t*>(eq);
   const auto* q = static_cast<const uint8_t*>(queries);
   auto* o = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (W <= 1) {
-    launch_regs<1>(grid, st, e, q, o, Q, m, W, S, read_len, factor, is_global);
-  } else if (W <= 2) {
-    launch_regs<2>(grid, st, e, q, o, Q, m, W, S, read_len, factor, is_global);
-  } else if (W <= 4) {
-    launch_regs<4>(grid, st, e, q, o, Q, m, W, S, read_len, factor, is_global);
-  } else if (W <= 8) {
-    launch_regs<8>(grid, st, e, q, o, Q, m, W, S, read_len, factor, is_global);
-  } else if (W <= 16) {
-    launch_regs<16>(grid, st, e, q, o, Q, m, W, S, read_len, factor, is_global);
-  } else if (W <= kRegWords) {
-    launch_regs<kRegWords>(grid, st, e, q, o, Q, m, W, S, read_len, factor, is_global);
+  if (W <= kRegWords) {
+    const int tiles = (S + kTile - 1) / kTile;
+    const int chunk = regs_chunk(Q, tiles);
+    const dim3 grid(tiles, (Q - 1) / chunk + 1);
+    regs_kernel(W, std::make_integer_sequence<int, kRegWords>())<<<grid, kThreads, 0, st>>>(
+        e, q, o, Q, m, S, read_len, factor, is_global, chunk);
   } else {
+    const dim3 grid((S + kThreads - 1) / kThreads, Q < kMaxGridY ? Q : kMaxGridY);
     if ((carries == nullptr && m > 0) || (wave && (m + kBatch - 1) / kBatch < kWarps)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -9,7 +9,7 @@ parent commit unpacked with ``git archive`` into a directory that
 other, each turn a child process started in its tree, so each builds and
 imports its own ``bgsa_tpu_torch``. PART names what a turn runs
 (``bitpal``, ``cli``, ``banded``, ``generic``, ``stream``, ``myers_long``,
-``peq``, ``pair``; default all eight). A turn prints:
+``peq``, ``pair``, ``myers``; default all nine). A turn prints:
 
 - the registers, stack and shared memory of every ``banded_packed_kernel``
   instance in the tree's main kernel library, (``stream``) of every
@@ -82,7 +82,18 @@ imports its own ``bgsa_tpu_torch``. PART names what a turn runs
   S=65,536, 150 bp, k = 8; packed: rng 13, Q=8, S=65,280, n_sub 3) and at
   one 150 bp bucket (Q=20, S=190,080, k = 8, the filter mix): the stream
   pair at 150 bp subjects, the packed pair at 150 bp (n_sub 3) and 158 bp
-  (n_sub 2).
+  (n_sub 2);
+- ``myers``: the full-word Myers register kernel (``myers_regs``), global,
+  on the same random subjects and queries in both trees (3 % N), at the
+  shapes of the benchmark's Myers cells: the 960 bp cell's full bucket
+  (Q=200, m=960, S=29,824, W=30) and its tail (S=10,528), and the 150 bp
+  cell's bucket (Q=20, m=150, S=190,080, W=5). For each: the instance that
+  ran (the tree's smallest ``myers_regs<N>`` with N >= W), its registers
+  and shared memory (``cuobjdump -res-usage``), its column loop's SASS per
+  pipe (``roofline.column_instructions``, a column and a word-column of
+  the instance), the kernel timed by CUDA events (median of 5 after a
+  warm-up; each run is one launch of 3.7 ms or more), its GCUPS, and the
+  output checksum.
 
 Exits with the first failing turn's code.
 """
@@ -118,7 +129,10 @@ if "peq" in parts:
     libs.append((build.load().path, "banded_peq_kernel"))
 if "pair" in parts:
     libs += [(build.load().path, "banded_stream_kernel"), (build.load().path, "pair_kernel")]
+if "myers" in parts:
+    libs.append((build.load().path, "myers_regs"))
 registers = {}  # mangled name -> registers, from the main library's res-usage
+shared = {}  # mangled name -> static shared memory bytes, the same
 for path, pattern in libs:
     usage = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-res-usage", path],
                            capture_output=True, text=True, check=True).stdout
@@ -126,6 +140,7 @@ for path, pattern in libs:
     for name, res in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", usage):
         if path == build.load().path:
             registers[name] = int(re.search(r"REG:(\d+)", res).group(1))
+            shared[name] = int(re.search(r"SHARED:(\d+)", res).group(1))
         if pattern in name:
             print(f"  {name}: {res.strip()}")
 for label, fn, Q, m, S, n, wb in (
@@ -391,6 +406,36 @@ if "pair" in parts:
         q, s = chip_smoke.banded_inputs(rng, Q, 150, S, n, 8, "mix")
         pair_line(f"bucket, {n} bp", route, 150, n, 8, torch.from_numpy(s).cuda(),
                   torch.from_numpy(q).cuda())
+if "myers" in parts:
+    from bgsa_tpu_torch import pack, roofline
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+    functions = roofline.sass_functions(roofline.sass_text(build.load().path))
+    spec = roofline.SASS_SPECS["myers_semiglobal"]
+    widths = sorted({int(w) for name in functions
+                     for w in re.findall(r"myers_regsILi(\d+)E", name)})
+    for label, Q, m, S, n in (("960 bp bucket", 200, 960, 29824, 960),
+                              ("960 bp tail", 200, 960, 10528, 960),
+                              ("150 bp bucket", 20, 150, 190080, 150)):
+        mrng = np.random.default_rng(Q + m + S)
+        eq = pack.pack_eq(torch.from_numpy(chip_smoke.random_codes(mrng, (S, n), 0.03)).cuda(), 32)
+        qt = torch.from_numpy(chip_smoke.random_codes(mrng, (Q, m))).cuda()
+        W = eq.shape[1]
+        run = lambda: ms.myers_semiglobal(eq, qt, read_len=n, is_global=True)
+        checksum = int(run().long().sum())
+        t = chip_smoke.cuda_times_ms(run, runs=5, warmup=1)
+        inst = min(w for w in widths if w >= W)
+        pattern = spec.function.format(W=inst)
+        name = [f for f in functions if re.search(pattern, f)][0]
+        per = roofline.column_instructions(roofline.find_function(functions, pattern), spec)
+        per_word = ", ".join(f"{per[p] / inst:.2f} {p}" for p in ("alu", "fma", "issue"))
+        print(f"  myers part, {label}: Q={Q} m={m} S={S} n={n} W={W}: myers_regs<{inst}> "
+              f"registers {registers[name]}, shared memory {shared[name]} B; SASS a column "
+              f"{per['alu']:.0f} alu, {per['fma']:.0f} fma, {per['issue']:.0f} issue (a "
+              f"word-column of the instance: {per_word}); kernel median "
+              f"{statistics.median(t):.4f} ms of 5 ({min(t):.4f}-{max(t):.4f}) = "
+              f"{Q * m * S * n / statistics.median(t) / 1e6:.1f} GCUPS; output checksum "
+              f"{checksum} ({smi})", flush=True)
+        del eq, qt
 for label, Q, S, geometries in lines:
     for m, n, k in geometries:
         engine = BandedEngine(k, device="cuda")
@@ -409,7 +454,7 @@ for label, Q, S, geometries in lines:
 """
 
 
-PARTS = ("bitpal", "cli", "banded", "generic", "stream", "myers_long", "peq", "pair")
+PARTS = ("bitpal", "cli", "banded", "generic", "stream", "myers_long", "peq", "pair", "myers")
 
 
 def main(argv) -> int:

@@ -103,6 +103,61 @@ def test_strip_kernels_on_one_warp_and_as_a_wavefront_match_plain(cuda, Q, S, m,
         assert torch.equal(got, want)
 
 
+# (Q, S, m, n) at the edges of the register kernel's design: a block's tile
+# of 32 subjects and its four warps, each running its own query of the
+# block's chunk. Q not a multiple of four warps, and past one block's chunk
+# (at S = 21,632 a block walks 12 of Q = 201 on a 132-SM card, the last
+# chunk 9); S at the tile's edges; every word count of an instance (the last
+# word short, or full at 960 and 1,024 bp); a query past one staged row of
+# 1,024 codes
+REGS_EDGES = [(1, 100, 40, 150), (3, 100, 40, 150), (5, 100, 40, 150), (201, 100, 40, 150),
+              (201, 21632, 40, 150), (5, 1, 40, 300), (5, 31, 40, 300), (5, 33, 40, 300),
+              (5, 4097, 40, 300), (3, 70, 60, 1), (3, 70, 60, 70), (3, 70, 60, 150),
+              (3, 70, 60, 257), (3, 70, 60, 513), (3, 70, 60, 960), (3, 70, 60, 1024),
+              (6, 40, 1500, 200)]
+MODES_AND_FACTORS = [(True, -1), (True, 1), (False, -1), (False, 1)]
+
+
+def plain_on_codes(eq, q, **kw):
+    """myers_semiglobal_ref on any query codes: a code outside 0..4 reads an
+    Eq plane of zeros (it matches nothing, as in the kernel)."""
+    zeros = torch.zeros_like(eq[:1])
+    return sg.myers_semiglobal_ref(torch.cat([eq, zeros]), q.long().clamp(max=pack.CHAR_NUM),
+                                   **kw)
+
+
+@pytest.mark.parametrize("Q,S,m,n", REGS_EDGES)
+@pytest.mark.parametrize("is_global,factor", MODES_AND_FACTORS)
+def test_register_kernel_at_its_tile_and_query_edges_matches_plain(cuda, Q, S, m, n, is_global,
+                                                                    factor):
+    rng = np.random.default_rng(Q * S + m + n)
+    q = torch.from_numpy(codes(rng, (Q, m))).to(cuda)
+    eq = pack.pack_eq(torch.from_numpy(skewed(rng, (S, n))).to(cuda), 32)
+    assert eq.shape[1] <= build.load().reg_words
+    before, strips = sg.LAUNCHES, sg.STRIP_LAUNCHES
+    got = sg.myers_semiglobal(eq, q, read_len=n, factor=factor, is_global=is_global)
+    torch.cuda.synchronize()
+    assert (sg.LAUNCHES, sg.STRIP_LAUNCHES) == (before + 1, strips)
+    want = sg.myers_semiglobal_ref(eq, q, read_len=n, factor=factor, is_global=is_global)
+    assert int((got - want).abs().max()) == 0
+
+
+@pytest.mark.parametrize("n", [1, 150, 960])
+@pytest.mark.parametrize("is_global,factor", MODES_AND_FACTORS)
+def test_register_kernel_query_codes_past_4_match_nothing(cuda, n, is_global, factor):
+    # codes 5..255 read the tile's plane of zeros
+    rng = np.random.default_rng(n)
+    q = rng.integers(0, 5, size=(7, 80))
+    wide = rng.random(q.shape) < 0.2
+    q[wide] = rng.choice([5, 6, 7, 128, 255], size=int(wide.sum()))
+    q = torch.from_numpy(q.astype(np.uint8)).to(cuda)
+    assert int(q.max()) >= 5
+    eq = pack.pack_eq(torch.from_numpy(skewed(rng, (97, n))).to(cuda), 32)
+    got = sg.myers_semiglobal(eq, q, read_len=n, factor=factor, is_global=is_global)
+    want = plain_on_codes(eq, q, read_len=n, factor=factor, is_global=is_global)
+    assert int((got - want).abs().max()) == 0
+
+
 @pytest.mark.parametrize("mode", [Mode.GLOBAL, Mode.SEMI_GLOBAL])
 def test_engine_cuda_matches_cpu(cuda, mode):
     rng = np.random.default_rng(3)

@@ -226,8 +226,10 @@ def listing(name, body):
 
 
 def word_kernel(maxw):
-    """A column loop as myers_regs<MAXW> compiles it: the query code from
-    shared memory, then MAXW guarded word copies of 3 instructions."""
+    """A column loop as a register instance with a runtime word count
+    compiles it (global31_regs<MAXW>): the query code from shared memory,
+    then MAXW guarded word copies, each loading its Eq word from global
+    memory."""
     body = [("", "S2R R0, SR_TID.X"), ("", "LDS.U8 R45, [R45+UR9]", "top")]
     for j in range(maxw):
         body += [("", f"ISETP.GE.AND P0, PT, R46, {j + 1:#x}, PT"), ("@!P0", f"BRA @g{j}"),
@@ -249,6 +251,46 @@ def test_sass_word_kernel_counts_every_instruction_of_its_column_loop():
     assert per == {"issue": 13, "alu": 2 * 2 + 1, "fma": 2}
     with pytest.raises(ValueError, match="2 SASS functions"):
         roofline.find_function(functions, "myers_regs")
+
+
+def tile_kernel(w):
+    """myers_regs<W> as it reads Eq from its block's shared-memory tile: the
+    tile's staging loop (global loads, shared stores), then per query the
+    warp's row staging loop and the column loop: the code from the row, its
+    plane picked once (the zero plane past 4), then W words each an LDS at
+    an immediate offset from that plane (no global load, no 64-bit address,
+    no mask, no bound test) and the network's ALU ops."""
+    body = [("", "S2R R0, SR_TID.X"),
+            ("", "LDG.E.CONSTANT R6, desc[UR10][R4.64]", "tile"), ("", "STS [R7], R6"),
+            ("", "IADD3 R7, R7, 0x200, RZ"), ("@P0", "BRA @tile"),
+            ("", "BAR.SYNC.DEFER_BLOCKING 0x0"),
+            ("", "LDG.E.U8.CONSTANT R8, desc[UR10][R2.64]", "query"), ("", "STS.U8 [R9], R8"),
+            ("", "IADD3 R9, R9, 0x20, RZ"), ("@P1", "BRA @query"), ("", "WARPSYNC.ALL"),
+            ("", "LDS.U8 R10, [R11+UR4]", "column"), ("", "IMNMX.U32 R10, R10, 0x5, PT"),
+            ("", f"IMAD R12, R10, {w * 0x80:#x}, R13")]
+    for j in range(w):
+        body += [("", f"LDS R14, [R12+{j * 0x80:#x}]"),
+                 ("", "LOP3.LUT R15, R14, R16, R17, 0xfe, !PT"),
+                 ("", "IADD3 R18, R15, R16, RZ"), ("", "SHF.R.U32.HI R17, RZ, 0x1f, R18")]
+    body += [("", "IADD3 R19, R19, R20, -R21"), ("@P2", "BRA @column"),
+             ("", "STG.E desc[UR10][R22.64], R19"), ("@P3", "BRA @query"), ("", "EXIT")]
+    return body
+
+
+@pytest.mark.parametrize("w", [1, 5, 30])
+def test_sass_tile_kernel_counts_its_column_loop_per_word_column(w):
+    name = f"_ZN4anon10myers_regsILi{w}EEEvPKjPKhPiiiiiiii"
+    functions = roofline.sass_functions(listing(name, tile_kernel(w)))
+    ins = roofline.find_function(functions, roofline.SASS_SPECS["myers_semiglobal"].function
+                                 .format(W=w))
+    loop = ins[[x[2] for x in ins].index("LDS.U8"):[x[1] for x in ins].index("@P2") + 1]
+    assert not any(x[2].startswith(("LDG", "IMAD.WIDE", "ISETP")) for x in loop)
+    per = roofline.column_instructions(ins, roofline.SASS_SPECS["myers_semiglobal"])
+    # a column: LDS.U8, IMNMX, IMAD, W x (LDS, LOP3, IADD3, SHF), IADD3,
+    # back edge; per word-column 4 issued and 3 ALU, plus the column's own
+    assert per == {"issue": 4 * w + 5, "alu": 3 * w + 2, "fma": 1}
+    assert {p: v / w for p, v in per.items()} == {
+        "issue": 4 + 5 / w, "alu": 3 + 2 / w, "fma": 1 / w}
 
 
 def banded_kernel():
