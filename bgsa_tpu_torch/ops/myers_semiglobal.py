@@ -19,7 +19,8 @@ column's hp/hn carries from strip to strip packed 32 columns to a word
 strips run as a wavefront over four warps (``WAVE_LAUNCHES``). Each launch
 runs in a profiler range named by its route, ``bgsa.myers_regs``,
 ``bgsa.myers_strips`` or ``bgsa.myers_strips_wave``, and adds its
-word-columns and carry buffer to the caller's ``stats.LaunchCounts``.
+word-columns, carry buffer and whether it ran as a wavefront to the
+caller's ``stats.LaunchCounts``.
 ``myers_strip_ref`` is a plain model of the strips' schedule, for the
 tests only.
 """
@@ -208,8 +209,9 @@ def myers_semiglobal(eq, queries, *, read_len: int, factor: int = -1,
 def _launch(eq, queries, *, read_len, factor, is_global, counts=None):
     """Launch the kernel on CUDA tensors: ``myers_regs<W>`` up to the
     register bound, past it the strips on one warp a group or as a
-    wavefront, each in a ``bgsa.<route>`` range, with the word-columns and
-    the (2, carry_words(m), Q, S) carry buffer added to ``counts``."""
+    wavefront, each in a ``bgsa.<route>`` range, with the word-columns, the
+    (2, carry_words(m), Q, S) carry buffer and the route added to
+    ``counts``."""
     global LAUNCHES, STRIP_LAUNCHES, WAVE_LAUNCHES
     from . import build
 
@@ -237,7 +239,7 @@ def _launch(eq, queries, *, read_len, factor, is_global, counts=None):
     kernels.check(rc, "myers_semiglobal")
     if counts is not None:
         counts.add("myers", Q * m * W * S, carries is not None,
-                   0 if carries is None else carries.nbytes)
+                   0 if carries is None else carries.nbytes, wave)
     LAUNCHES += 1
     STRIP_LAUNCHES += carries is not None and not wave
     WAVE_LAUNCHES += wave

@@ -5,14 +5,15 @@ Mirrors the reference's end-of-run report (``cal_cpu.c:459-475``):
 with cells = ref_len * ref_count * read_len * subject_count.
 
 The port's own copy of ``bgsa_tpu.stats``: the same fields, JSON and
-report, plus twelve fields the reference lacks (the reader wait; the reader
-thread's read and encode seconds, the buckets its native pass encoded and
-those whose transport payload it packed; the rows scored; the BitPAl
-launches' word-columns, those on the tiled kernel, and their largest
-scratch; the Myers launches' word-columns, those on the strip kernels, and
-their largest carry buffer), ``LaunchCounts``, which a launcher fills and
-``RunStats.add_launches`` adds to its family's fields, and ``Span``, which
-times a phase on the host clock and names it in a ``torch.profiler`` trace.
+report, plus thirteen fields the reference lacks (the reader wait; the
+reader thread's read and encode seconds, the buckets its native pass
+encoded and those whose transport payload it packed; the rows scored; the
+BitPAl launches' word-columns, those on the tiled kernel, and their largest
+scratch; the Myers launches' word-columns, those on the strip kernels,
+those of them on the wavefront, and their largest carry buffer),
+``LaunchCounts``, which a launcher fills and ``RunStats.add_launches`` adds
+to its family's fields, and ``Span``, which times a phase on the host clock
+and names it in a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -23,10 +24,13 @@ import time
 import torch
 
 # The RunStats fields that a kernel family's LaunchCounts add to: its
-# word-columns, those past the register bound, and its largest buffer.
+# word-columns, those past the register bound, those of them on the
+# wavefront (None: the family has none), and its largest buffer.
 LAUNCH_FIELDS = {
-    "bitpal": ("bitpal_word_columns", "bitpal_tiled_word_columns", "bitpal_scratch_peak_bytes"),
-    "myers": ("myers_word_columns", "myers_strip_word_columns", "myers_carry_peak_bytes"),
+    "bitpal": ("bitpal_word_columns", "bitpal_tiled_word_columns", None,
+               "bitpal_scratch_peak_bytes"),
+    "myers": ("myers_word_columns", "myers_strip_word_columns", "myers_wave_word_columns",
+              "myers_carry_peak_bytes"),
 }
 
 
@@ -35,22 +39,27 @@ class LaunchCounts:
     """What a caller's launches of one kernel family (a key of
     ``LAUNCH_FIELDS``) ran: word-columns (Q x m x W x S) in all and on the
     family's kernel past its register bound (BitPAl's tiled kernel, Myers'
-    strips), and the largest device buffer that one launch allocated
-    (BitPAl's scratch, Myers' carries), in bytes. ``family`` is None until
+    strips), the largest device buffer that one launch allocated (BitPAl's
+    scratch, Myers' carries), in bytes, and the wide word-columns that ran
+    as a wavefront (Myers' ``myers_strips_wave``). ``family`` is None until
     a launch is counted."""
 
     family: str | None = None
     word_columns: int = 0
     wide_word_columns: int = 0
     buffer_peak_bytes: int = 0
+    wave_word_columns: int = 0
 
-    def add(self, family: str, word_columns: int, wide: bool, buffer_bytes: int = 0) -> None:
-        """Count one launch of ``family``'s kernels."""
+    def add(self, family: str, word_columns: int, wide: bool, buffer_bytes: int = 0,
+            wave: bool = False) -> None:
+        """Count one launch of ``family``'s kernels (``wave``: a wide launch
+        run as a wavefront)."""
         if self.family not in (None, family):
             raise ValueError(f"a {family} launch counted with {self.family} launches")
         self.family = family
         self.word_columns += word_columns
         self.wide_word_columns += word_columns if wide else 0
+        self.wave_word_columns += word_columns if wave else 0
         self.buffer_peak_bytes = max(self.buffer_peak_bytes, buffer_bytes)
 
 
@@ -99,11 +108,13 @@ class RunStats:
     bitpal_tiled_word_columns: int = 0
     bitpal_scratch_peak_bytes: int = 0
     # Myers launches on the card, once a dispatch (LaunchCounts):
-    # word-columns (Q x m x W x S) in all and on the strip kernels, and the
-    # largest carry buffer one launch allocated, in bytes.
+    # word-columns (Q x m x W x S) in all and on the strip kernels (either
+    # schedule), the largest carry buffer one launch allocated, in bytes,
+    # and the strips' word-columns that ran as a wavefront.
     myers_word_columns: int = 0
     myers_strip_word_columns: int = 0
     myers_carry_peak_bytes: int = 0
+    myers_wave_word_columns: int = 0
 
     @property
     def cells(self) -> int:
@@ -117,9 +128,11 @@ class RunStats:
         where no launch was counted)."""
         if counts.family is None:
             return
-        total, wide, peak = LAUNCH_FIELDS[counts.family]
+        total, wide, wave, peak = LAUNCH_FIELDS[counts.family]
         setattr(self, total, getattr(self, total) + counts.word_columns)
         setattr(self, wide, getattr(self, wide) + counts.wide_word_columns)
+        if wave:
+            setattr(self, wave, getattr(self, wave) + counts.wave_word_columns)
         setattr(self, peak, max(getattr(self, peak), counts.buffer_peak_bytes))
 
     def to_json(self) -> str:

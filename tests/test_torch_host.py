@@ -158,7 +158,7 @@ def test_run_stats_json_and_report():
         "read_wait_time", "reader_read_time", "reader_encode_time", "reader_native_buckets",
         "reader_packed_buckets", "scored_rows", "bitpal_word_columns", "bitpal_tiled_word_columns",
         "bitpal_scratch_peak_bytes", "myers_word_columns", "myers_strip_word_columns",
-        "myers_carry_peak_bytes"}
+        "myers_carry_peak_bytes", "myers_wave_word_columns"}
     assert got.report() == want.report() and got.cells == want.cells
 
 
