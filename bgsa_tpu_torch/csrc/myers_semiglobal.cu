@@ -20,9 +20,10 @@
 // chain waits on L2's latency. So up to kRegWords words (myers_regs<W>) a
 // block stages its tile's Eq words in shared memory once and reads every
 // word-column there, at an offset fixed at compile time, which leaves the
-// kernel bound by int32 issue rate and dependency latency. Past kRegWords
-// words the bound is the same network's: the register instance's cost per
-// word, for every word-column. wgmma and TMA do not apply.
+// kernel bound by int32 issue rate and dependency latency; the wavefront
+// (myers_strips_wave) does the same a strip at a time. Past kRegWords words
+// the bound is the same network's: the register instance's cost per word,
+// for every word-column. wgmma and TMA do not apply.
 //
 // Design (simple first):
 //   * up to kRegWords words (myers_regs<W>, one instance for each W): a
@@ -54,7 +55,14 @@
 //     group run as a wavefront over a block's four warps
 //     (myers_strips_wave), one batch of 32 columns a step, a barrier after
 //     each step, its query codes read a batch at a time, one a lane, and
-//     shuffled out;
+//     shuffled out. Each warp reads its strip's Eq words from its own
+//     shared-memory tile, staged at the strip's first batch: (5 + 1 planes
+//     of zeros) x 32 words x 32 lanes, 24,576 B a warp and 98,304 B a
+//     block, so 2 blocks fit on an SM (264 on a 132-SM card, where the
+//     registers allowed 4): a grid of 672 blocks runs as 3 rounds of 264
+//     instead of 2 of 528, one of 192 as 0.73 of a round instead of 0.36. The one-warp strips keep their global loads: their
+//     block of 128 subjects would need four times the tile a strip, with
+//     another residency trade;
 //   * query codes outside 0..4 match nothing (no out-of-range Eq reads).
 // The launch uses the caller's stream, allocates nothing and does not
 // synchronize; the C entry point returns cudaGetLastError().
@@ -80,6 +88,10 @@ constexpr int kMaxGridY = 65535;
 constexpr int kTile = kLanes;       // subjects a myers_regs block: one a lane
 constexpr int kPlanes = kChars + 1; // the tile's planes: A, C, G, T, N, then zeros
 constexpr int kBlocksPerSm = 128;   // myers_regs blocks a grid leaves every SM, at least
+constexpr int kWavePlane = kRegWords * kLanes;  // words a plane of a wavefront warp's tile
+constexpr int kWaveSlice = kPlanes * kWavePlane;  // words a wavefront warp's tile: 24,576 B
+constexpr int kWaveSmem = kWarps * kWaveSlice * 4;  // a wavefront block's tiles: 98,304 B
+constexpr int kWaveBlocksPerSm = 2;  // wavefront blocks an SM: what its tiles leave room for
 
 // One word of one column. pv/mv: this word's vertical state; hp/hn: the
 // incoming horizontal delta planes, replaced by the outgoing ones; ph/mh:
@@ -265,6 +277,42 @@ myers_strips(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ querie
   }
 }
 
+// One batch of a wavefront strip: strip_batch's work with the strip's Eq
+// words from the warp's tile. tile: this lane's column of the tile, word j
+// of plane p at tile[(p * kRegWords + j) * kLanes]; codes: the batch's
+// query codes, column t's in lane t. kFull: the strip has all kRegWords
+// words, so no word is guarded (else the first sw).
+template <bool kFull>
+__device__ __forceinline__ void wave_batch(const uint32_t* tile, int sw,
+                                           uint32_t (&pv)[kRegWords], uint32_t (&mv)[kRegWords],
+                                           uint32_t* at, size_t carry_plane, bool first,
+                                           bool last, bool store, int nb, int codes,
+                                           int last_shift, int is_global, int& score,
+                                           int& min_score) {
+  const uint32_t hp_in = first ? (is_global ? 0xFFFFFFFFu : 0u) : at[0];
+  const uint32_t hn_in = first ? 0u : at[carry_plane];
+  uint32_t hp_out = 0u, hn_out = 0u;
+  for (int t = 0; t < nb; ++t) {
+    const int c = __shfl_sync(0xFFFFFFFFu, codes, t);
+    const uint32_t* const eq_c = tile + min(c, kChars) * kWavePlane;
+    uint32_t hp = (hp_in >> t) & 1u, hn = (hn_in >> t) & 1u, ph = 0u, mh = 0u;
+#pragma unroll
+    for (int j = 0; j < kRegWords; ++j) {
+      if (kFull || j < sw) myers_word(eq_c[j * kLanes], pv[j], mv[j], hp, hn, ph, mh);
+    }
+    hp_out |= hp << t;
+    hn_out |= hn << t;
+    if (last) {
+      score += score_delta(ph, mh, last_shift);  // ph/mh of word W-1
+      if (!is_global) min_score = min(min_score, score);
+    }
+  }
+  if (store) {
+    at[0] = hp_out;
+    at[carry_plane] = hn_out;
+  }
+}
+
 // Past kRegWords words on few pairs (the caller's choice: where one warp a
 // group of 32 subjects would leave the SMs thin): the same strips, with the
 // strips of one group of 32 subjects spread over the kWarps warps of a
@@ -275,16 +323,37 @@ myers_strips(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ querie
 // same in-place buffer. A warp reads its batch's 32 query codes with one
 // load a lane and takes each column's from its lane (lanes past S compute
 // on subject S - 1 and store nothing).
-__global__ void __launch_bounds__(kThreads, 1)
+//
+// Eq comes from shared memory, as in myers_regs. Each warp owns a tile of
+// kPlanes x kRegWords x kLanes words ([plane][word][lane], 24,576 B; the
+// block's four 98,304 B of dynamic shared memory): at a strip's batch 0
+// each lane copies its own subject's (5, sw) words of the strip into its
+// column, coalesced across the warp, and a sixth plane of zeros, written
+// once, is what query codes outside 0..4 read. A lane reads only its own
+// column and the warp rewrites the tile only at its next strip's batch 0,
+// so the tile needs no barrier and no warp synchronization. A column then
+// picks its plane once from the query code, and word j is a shared-memory
+// load at a fixed offset: no mask, no clamp of the code per word, no bound
+// test on a full strip and no 64-bit address arithmetic, so ptxas may
+// issue a column's loads ahead of its chain (the launch bounds leave it up
+// to 255 registers). The tiles, not the registers, set the residency:
+// kWaveBlocksPerSm blocks an SM, 264 on a 132-SM card, so a grid of 672
+// blocks runs as 2.55 rounds (3) and one of 192 fills 0.73 of a round.
+// myers_strips keeps its global loads: a block there holds 128 subjects,
+// four times the tile, and trades residency another way.
+__global__ void __launch_bounds__(kThreads, kWaveBlocksPerSm)
 myers_strips_wave(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ queries,
                   int32_t* __restrict__ out, uint32_t* carries, int Q, int m, int W, int S,
                   int read_len, int factor, int is_global) {
+  extern __shared__ uint32_t wave_tiles[];  // [warp][plane][word][lane]
   const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
   const int s = blockIdx.x * kLanes + lane;
   const bool active = s < S;
   const int sr = active ? s : S - 1;  // the subject a lane reads
+  uint32_t* const tile = wave_tiles + warp * kWaveSlice + lane;  // this lane's column
+#pragma unroll
+  for (int j = 0; j < kRegWords; ++j) tile[(kChars * kRegWords + j) * kLanes] = 0u;
   const int last_shift = (read_len - 1) % kWordBits;
-  const size_t plane = static_cast<size_t>(W) * S;
   const size_t pairs = static_cast<size_t>(Q) * S;
   const int strips = (W + kRegWords - 1) / kRegWords;
   const int batches = (m + kBatch - 1) / kBatch;
@@ -302,16 +371,28 @@ myers_strips_wave(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ q
       const int strip = j * kWarps + warp;
       if (j >= 0 && strip < strips) {  // uniform across the warp
         const int w0 = strip * kRegWords;
+        const int sw = min(kRegWords, W - w0);
         const bool last = strip == strips - 1;
-        if (b == 0) reset_strip(pv, mv);
+        if (b == 0) {
+          reset_strip(pv, mv);
+          const uint32_t* const eq_s = eq + static_cast<size_t>(w0) * S + sr;
+          for (int p = 0; p < kChars; ++p) {
+            for (int w = 0; w < sw; ++w) {
+              tile[(p * kRegWords + w) * kLanes] = eq_s[(static_cast<size_t>(p) * W + w) * S];
+            }
+          }
+        }
         const int c0 = b * kBatch;
         const int nb = min(kBatch, m - c0);
         const int codes = lane < nb ? query[c0 + lane] : 0;
-        strip_batch(eq + static_cast<size_t>(w0) * S + sr, plane, S, min(kRegWords, W - w0), pv,
-                    mv, carries + static_cast<size_t>(b) * pairs + pair, carry_plane,
-                    strip == 0, last, !last && active, nb,
-                    [codes](int i) { return __shfl_sync(0xFFFFFFFFu, codes, i); }, last_shift,
-                    is_global, score, min_score);
+        uint32_t* const at = carries + static_cast<size_t>(b) * pairs + pair;
+        if (sw == kRegWords) {
+          wave_batch<true>(tile, sw, pv, mv, at, carry_plane, strip == 0, last, !last && active,
+                           nb, codes, last_shift, is_global, score, min_score);
+        } else {
+          wave_batch<false>(tile, sw, pv, mv, at, carry_plane, strip == 0, last,
+                            !last && active, nb, codes, last_shift, is_global, score, min_score);
+        }
       }
       __syncthreads();
     }
@@ -386,9 +467,17 @@ int bgsa_myers_semiglobal(const void* eq, const void* queries, void* out, void* 
     }
     auto* c = static_cast<uint32_t*>(carries);
     if (wave) {
+      // past the 48 KB default: set on every wave launch, as the attribute is
+      // the current device's
+      const cudaError_t smem = cudaFuncSetAttribute(
+          myers_strips_wave, cudaFuncAttributeMaxDynamicSharedMemorySize, kWaveSmem);
+      if (smem != cudaSuccess) {
+        cudaGetLastError();  // returned here: leave no error for the next launch
+        return static_cast<int>(smem);
+      }
       const dim3 wave_grid((S + kLanes - 1) / kLanes, grid.y);  // a block a group
-      myers_strips_wave<<<wave_grid, kThreads, 0, st>>>(e, q, o, c, Q, m, W, S, read_len,
-                                                        factor, is_global);
+      myers_strips_wave<<<wave_grid, kThreads, kWaveSmem, st>>>(e, q, o, c, Q, m, W, S,
+                                                                read_len, factor, is_global);
     } else {
       myers_strips<<<grid, kThreads, 0, st>>>(e, q, o, c, Q, m, W, S, read_len, factor,
                                               is_global);

@@ -280,11 +280,33 @@ def _target(ins) -> int | None:
     return int(m.group(1), 16) if m else None
 
 
-def _loops(ins) -> list:
-    """(first, last) instruction indices of every loop: a backward branch."""
+def _diverged(x) -> bool:
+    """A branch taken only where the warp has diverged (``BRA.DIV``, before a
+    warp-synchronous instruction such as SHFL): never on a converged warp."""
+    return x[2].startswith("BRA.DIV")
+
+
+def _slow_paths(ins) -> set:
+    """Indices of the diverged warps' paths: from each ``BRA.DIV``'s target
+    to the first unconditional branch after it, which jumps back."""
     index = {x[0]: i for i, x in enumerate(ins)}
+    out = set()
+    for x in ins:
+        i = index.get(_target(x)) if _diverged(x) else None
+        while i is not None and i < len(ins):
+            out.add(i)
+            y = ins[i]
+            i = None if y[2].startswith("BRA") and y[1] in ("", "@PT") else i + 1
+    return out
+
+
+def _loops(ins) -> list:
+    """(first, last) instruction indices of every loop: a backward branch,
+    but not a diverged warp's jump back from its slow path."""
+    index = {x[0]: i for i, x in enumerate(ins)}
+    slow = _slow_paths(ins)
     return [(index[t], i) for i, x in enumerate(ins)
-            if (t := _target(x)) is not None and t <= x[0] and t in index]
+            if (t := _target(x)) is not None and t <= x[0] and t in index and i not in slow]
 
 
 def _trip(body, every: bool, anchor: str | None) -> dict:
@@ -292,7 +314,8 @@ def _trip(body, every: bool, anchor: str | None) -> dict:
     instruction the back edge): every instruction on the path where each
     conditional branch falls through, or (``every`` False) the shortest
     path with only the query-code checks (``ISETP.GT.U32 Px, ..., code,
-    0x4``) falling through."""
+    0x4``) falling through. A ``BRA.DIV`` falls through: the warp is
+    converged."""
     n = len(body)
     index = {x[0]: i for i, x in enumerate(body)}
     codes = {x[3].split(",")[0] for x in body if x[2] == anchor}
@@ -309,7 +332,7 @@ def _trip(body, every: bool, anchor: str | None) -> dict:
                 continue
             t = _target(x)
             taken = index.get(t) if t is not None and t > x[0] else None
-            if t is None or t <= x[0]:  # not a branch, or an inner loop's back edge
+            if t is None or t <= x[0] or _diverged(x):  # not a branch taken here
                 succ = [i + 1]
             elif x[1] in ("", "@PT"):  # unconditional
                 succ = [taken]

@@ -73,6 +73,17 @@ def test_kernel_matches_plain(cuda, n, is_global, factor):
     assert torch.equal(got, want)
 
 
+MODES_AND_FACTORS = [(True, -1), (True, 1), (False, -1), (False, 1)]
+
+
+def plain_on_codes(eq, q, **kw):
+    """myers_semiglobal_ref on any query codes: a code outside 0..4 reads an
+    Eq plane of zeros (it matches nothing, as in the kernel)."""
+    zeros = torch.zeros_like(eq[:1])
+    return sg.myers_semiglobal_ref(torch.cat([eq, zeros]), q.long().clamp(max=pack.CHAR_NUM),
+                                   **kw)
+
+
 # (Q, S, m, n, wavefront) past the register bound: the strips of a group of
 # 32 subjects on one warp (many pairs, or three batches of columns) and as
 # a wavefront over four warps (few pairs: five and ten strips, seven
@@ -103,6 +114,68 @@ def test_strip_kernels_on_one_warp_and_as_a_wavefront_match_plain(cuda, Q, S, m,
         assert torch.equal(got, want)
 
 
+def strips_launch(eq, q, *, read_len, factor, is_global, wave):
+    """The C entry past the register bound on the schedule named: the
+    wavefront (``wave``) or one warp a group of 32 subjects."""
+    kernels = build.load()
+    _, W, S = eq.shape
+    Q, m = q.shape
+    q = q.to(torch.uint8).contiguous()
+    out = torch.empty((Q, S), dtype=torch.int32, device=eq.device)
+    carries = torch.empty((2, sg.carry_words(m), Q, S), dtype=torch.int32, device=eq.device)
+    rc = kernels.lib.bgsa_myers_semiglobal(
+        eq.data_ptr(), q.data_ptr(), out.data_ptr(), carries.data_ptr(), Q, m, W, S, read_len,
+        factor, int(is_global), int(wave), torch.cuda.current_stream(eq.device).cuda_stream)
+    kernels.check(rc, "myers_semiglobal")
+    return out
+
+
+# (Q, S, m, n) at the edges of the wavefront's tiles: strip counts of 1, 2
+# and 3 mod 4 (5, 6 and 7; 2 and 3) and 0 (4), a last strip of 1, 7 and 32
+# words, S and m on and off multiples of 32
+WAVE_EDGES = [(3, 77, 97, 4097),    # 5 strips, the last of 1 word
+              (2, 33, 129, 1241),   # 2 strips, the last of 7
+              (3, 100, 128, 2050),  # 3 strips, the last of 1
+              (2, 40, 200, 5317),   # 6 strips, the last of 7
+              (2, 64, 150, 7168),   # 7 strips, the last of 32
+              (1, 31, 300, 4096)]   # 4 strips, all of 32
+
+
+@pytest.mark.parametrize("Q,S,m,n", WAVE_EDGES)
+@pytest.mark.parametrize("is_global,factor", MODES_AND_FACTORS)
+def test_wavefront_at_its_tile_edges_matches_the_one_warp_strips(cuda, Q, S, m, n, is_global,
+                                                                 factor):
+    # query codes 4 and 5..255 (the tile's plane of zeros) among 0..3
+    rng = np.random.default_rng(S * m + n)
+    q = rng.integers(0, 5, size=(Q, m))
+    wide = rng.random(q.shape) < 0.2
+    q[wide] = rng.choice([5, 6, 7, 128, 255], size=int(wide.sum()))
+    q = torch.from_numpy(q.astype(np.uint8)).to(cuda)
+    assert int((q == 4).sum()) > 0 and int(q.max()) >= 5
+    eq = pack.pack_eq(torch.from_numpy(skewed(rng, (S, n))).to(cuda), 32)
+    kw = dict(read_len=n, factor=factor, is_global=is_global)
+    got = strips_launch(eq, q, wave=True, **kw)
+    assert int((got - strips_launch(eq, q, wave=False, **kw)).abs().max()) == 0
+    if eq.shape[1] * m <= 65 * 130:  # the plain version where it is affordable
+        assert int((got - plain_on_codes(eq, q, **kw)).abs().max()) == 0
+
+
+def test_wavefront_at_the_genome_cells_words_and_columns(cuda):
+    # W = 935 and m = 29,903: 30 strips (the last of 7 words), 935 batches
+    n = m = 29903
+    rng = np.random.default_rng(n)
+    subjects = skewed(rng, (40, n))
+    q = codes(rng, (2, m))
+    q[0] = subjects[3]
+    q[0, rng.random(m) < 0.01] = rng.integers(0, 4)  # a near copy of subject 3
+    q = torch.from_numpy(q.astype(np.uint8)).to(cuda)
+    eq = pack.pack_eq(torch.from_numpy(subjects).to(cuda), 32)
+    for is_global, factor in ((True, -1), (False, 1)):
+        kw = dict(read_len=n, factor=factor, is_global=is_global)
+        got = strips_launch(eq, q, wave=True, **kw)
+        assert int((got - strips_launch(eq, q, wave=False, **kw)).abs().max()) == 0
+
+
 # (Q, S, m, n) at the edges of the register kernel's design: a block's tile
 # of 32 subjects and its four warps, each running its own query of the
 # block's chunk. Q not a multiple of four warps, and past one block's chunk
@@ -115,17 +188,6 @@ REGS_EDGES = [(1, 100, 40, 150), (3, 100, 40, 150), (5, 100, 40, 150), (201, 100
               (5, 4097, 40, 300), (3, 70, 60, 1), (3, 70, 60, 70), (3, 70, 60, 150),
               (3, 70, 60, 257), (3, 70, 60, 513), (3, 70, 60, 960), (3, 70, 60, 1024),
               (6, 40, 1500, 200)]
-MODES_AND_FACTORS = [(True, -1), (True, 1), (False, -1), (False, 1)]
-
-
-def plain_on_codes(eq, q, **kw):
-    """myers_semiglobal_ref on any query codes: a code outside 0..4 reads an
-    Eq plane of zeros (it matches nothing, as in the kernel)."""
-    zeros = torch.zeros_like(eq[:1])
-    return sg.myers_semiglobal_ref(torch.cat([eq, zeros]), q.long().clamp(max=pack.CHAR_NUM),
-                                   **kw)
-
-
 @pytest.mark.parametrize("Q,S,m,n", REGS_EDGES)
 @pytest.mark.parametrize("is_global,factor", MODES_AND_FACTORS)
 def test_register_kernel_at_its_tile_and_query_edges_matches_plain(cuda, Q, S, m, n, is_global,

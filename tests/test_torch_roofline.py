@@ -572,6 +572,28 @@ def test_sass_strip_kernel_counts_one_word_column(name, kernel, other, code):
     assert bound == {"issue": 163, "alu": 65, "fma": 32}
 
 
+@pytest.mark.parametrize("name,kernel", [("myers_semiglobal_wave", "myers_strips_wave"),
+                                         ("myers_global_wave", "global31_strips_wave")])
+def test_sass_wavefront_counts_its_column_loop_past_the_shuffles_slow_path(name, kernel):
+    # the shuffle compiles to BRA.DIV (taken only on a diverged warp) before
+    # the SHFL, and its slow path lies past the kernel's end, jumping back
+    # into the column loop: the branch falls through, the jump back is no
+    # loop of its own
+    code = "SHFL.IDX PT, R45, R44, R7, 0x1f"
+    body = strip_kernel(32, code)
+    col = body.index(("", code, "col"))
+    body[col:col + 2] = [("", "BRA.DIV UR13, @slow", "col"), ("", code),
+                         (*body[col + 1], "back")]
+    body += [("", "BSSY B1, @join", "slow"), ("", "WARPSYNC.COLLECTIVE R85, @join"),
+             ("", "SHFL.IDX P1, R45, R44, R88, R90"), ("", "ENDCOLLECTIVE"),
+             ("", "BSYNC B1", "join"), ("", "BRA @back")]
+    ins = roofline.sass_functions(listing(f"_ZN4anon{len(kernel)}{kernel}EPKjPKhPiPjiiiiiii",
+                                          body))
+    per = roofline.column_instructions(ins[next(iter(ins))], roofline.SASS_SPECS[name])
+    # the strip kernel's 167 issued and the BRA.DIV
+    assert per == {"issue": 168 / 32, "alu": 68 / 32, "fma": 1}
+
+
 def test_sass_peak_kernel_step_from_its_main_loop():
     step = [("", "IMAD.IADD R4, R4, 0x1, R2"), ("", "SHF.R.U32.HI R5, RZ, 0x1, R4"),
             ("", "LOP3.LUT R4, R4, R5, R2, 0x1e, !PT"), ("", "IMAD.SHL.U32 R5, R4, 0x2, RZ"),
