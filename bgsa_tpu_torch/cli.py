@@ -35,6 +35,7 @@ import tempfile
 import numpy as np
 
 from .schemes import Mode, Scoring
+from .stats import Span
 
 
 def _auto_host_role() -> tuple[int, int] | None:
@@ -100,7 +101,10 @@ def _profiler(directory: str, with_stack: bool):
     )
 
 
-def align_main(argv=None) -> int:
+def _align_checks(argv):
+    """``bgsa-torch-align``'s parser, checks and line-format probes: the
+    exit code of a refusal, else (args, scoring, mode, config, shard,
+    ratios, device, query, database) of the run."""
     p = argparse.ArgumentParser(prog="bgsa-torch-align", description=__doc__)
     p.add_argument("-q", dest="query", required=True, help="query file (fixed-length lines)")
     p.add_argument("-d", dest="database", required=True, help="database file")
@@ -328,8 +332,7 @@ def align_main(argv=None) -> int:
                   "plain torch path on the CPU", file=sys.stderr)
             return 1
 
-    from .banded_pipeline import run_banded
-    from .pipeline import PipelineConfig, run_alignment
+    from .pipeline import PipelineConfig
 
     out_dir = os.path.dirname(args.result)
     if out_dir:
@@ -350,6 +353,18 @@ def align_main(argv=None) -> int:
         cfg_kwargs["sync_timeout"] = args.sync_timeout
     mode = Mode.SEMI_GLOBAL if args.semi_global else Mode.GLOBAL
     config = PipelineConfig(**cfg_kwargs)
+    return args, scoring, mode, config, shard, ratios, device, query, database
+
+
+def align_main(argv=None) -> int:
+    with Span("cli"):  # the checks and the line-format probes
+        checked = _align_checks(argv)
+    if isinstance(checked, int):
+        return checked
+    args, scoring, mode, config, shard, ratios, device, query, database = checked
+    from .banded_pipeline import run_banded
+    from .pipeline import run_alignment
+
     profile_cm = (_profiler(args.profile, args.profile_python) if args.profile
                   else contextlib.nullcontext())
     try:
@@ -377,15 +392,16 @@ def align_main(argv=None) -> int:
     except (ValueError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    if shard is not None:
-        stats, meta = stats
-        meta.save(args.result + ".meta.json")
-    if args.stats_json:
-        with open(args.stats_json, "w") as f:
-            f.write(stats.to_json() + "\n")
-    if not args.quiet:
-        print(f"score is {scoring.match}, {scoring.mismatch}, {scoring.gap}")
-        print(stats.report())
+    with Span("cli"):  # the stats and the report
+        if shard is not None:
+            stats, meta = stats
+            meta.save(args.result + ".meta.json")
+        if args.stats_json:
+            with open(args.stats_json, "w") as f:
+                f.write(stats.to_json() + "\n")
+        if not args.quiet:
+            print(f"score is {scoring.match}, {scoring.mismatch}, {scoring.gap}")
+            print(stats.report())
     return 0
 
 

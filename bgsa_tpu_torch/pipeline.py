@@ -401,164 +401,170 @@ def run_bucketed(
             threads=_pack_threads(config),
         )
 
-    stats.query_count, stats.query_len = queries.shape
-    stats.subject_len = db.length
+    # Everything between the open and the reader thread's start: query
+    # buckets, the writer or shard role, the warm-up.
+    with Span("setup"):
+        stats.query_count, stats.query_len = queries.shape
+        stats.subject_len = db.length
 
-    q_buckets = [
-        queries[s : s + config.ref_bucket_count]
-        for s in range(0, len(queries), config.ref_bucket_count)
-    ]
+        q_buckets = [
+            queries[s : s + config.ref_bucket_count]
+            for s in range(0, len(queries), config.ref_bucket_count)
+        ]
 
-    # No shape pad: each bucket (or host slice) goes to the engine with the
-    # rows the reader produced, 'N' lane pads included. The port's kernels
-    # take any subject count from one library, so a tail bucket compiles
-    # nothing new; rows stay a multiple of v_num (lanes x n_shards), which
-    # scores_packed's equal shard split needs.
+        # No shape pad: each bucket (or host slice) goes to the engine with the
+        # rows the reader produced, 'N' lane pads included. The port's kernels
+        # take any subject count from one library, so a tail bucket compiles
+        # nothing new; rows stay a multiple of v_num (lanes x n_shards), which
+        # scores_packed's equal shard split needs.
 
-    meta = None
-    meta_path = result_path + ".meta.json"
-    done_buckets = 0
-    if shard is not None:
-        from .parallel.multihost import ShardMeta, host_slice, shard_resume_point
+        meta = None
+        meta_path = result_path + ".meta.json"
+        done_buckets = 0
+        if shard is not None:
+            from .parallel.multihost import ShardMeta, host_slice, shard_resume_point
 
-        host_id, n_hosts = shard
-        from .parallel.multihost import normalized_ratios
+            host_id, n_hosts = shard
+            from .parallel.multihost import normalized_ratios
 
-        # Static -R splits are resume-critical (a different ratio vector
-        # re-slices every remaining bucket); dynamic mode's schedule is
-        # protected by the run token instead, so its sidecar records None.
-        static_ratios = None if dynamic else normalized_ratios(shard_ratios, n_hosts)
-        if resume:
-            done_buckets, meta = shard_resume_point(
-                result_path, meta_path, len(queries),
-                np.dtype(write_dtype), n_hosts, host_id,
-                seqs_per_bucket=db.seqs_per_bucket,
-                db_subjects=db.total_count,
-                ratios=None if dynamic else shard_ratios,
-            )
-            if meta is not None:
-                stats.subject_count += sum(
-                    c - e for c, e in zip(meta.block_counts, meta.extra_counts)
+            # Static -R splits are resume-critical (a different ratio vector
+            # re-slices every remaining bucket); dynamic mode's schedule is
+            # protected by the run token instead, so its sidecar records None.
+            static_ratios = None if dynamic else normalized_ratios(shard_ratios, n_hosts)
+            if resume:
+                done_buckets, meta = shard_resume_point(
+                    result_path, meta_path, len(queries),
+                    np.dtype(write_dtype), n_hosts, host_id,
+                    seqs_per_bucket=db.seqs_per_bucket,
+                    db_subjects=db.total_count,
+                    ratios=None if dynamic else shard_ratios,
                 )
-        if meta is None:
-            meta = ShardMeta(
-                host_id, n_hosts, len(queries), [], [],
-                dtype=np.dtype(write_dtype).name,
-                seqs_per_bucket=db.seqs_per_bucket,
-                db_subjects=db.total_count,
-                ratios=static_ratios,
-            )
-        writer_fp = open(result_path, "ab" if done_buckets else "wb")
-        if dynamic:
-            # Live re-splitting (the reference's -D, cal_on_all_dynamic,
-            # original/BGSA_KNC/cal_all.c:772-1487): each bucket's split comes
-            # from the measured per-host times of the previous bucket,
-            # exchanged as files in sync_dir; every host replays the same
-            # published times, so the ratio schedule is bit-identical on all
-            # of them. Slices are aligned to `chunk` (seqs_per_bucket /
-            # dynamic_grid lanes), which the schedule and the shard files
-            # follow.
-            from .parallel import multihost as mh
-
-            sync_dir = sync_dir or (os.path.dirname(result_path) or ".")
-            # an explicit --sync-dir need not pre-exist (every host creates
-            # it; makedirs is atomic-enough for concurrent roles)
-            os.makedirs(sync_dir, exist_ok=True)
-            # Time files carry a run-identity token so a reused sync_dir's
-            # stale files from a previous (different) run can never be read
-            # as this run's times (which would silently fork the schedule
-            # across hosts).
-            sync_token = mh.run_token(
-                query_path, db_path, n_hosts, shard_ratios, config.bucket_size
-            )
-            chunk = v_num
-            if db.bucket_count > 1:
-                chunk = v_num * max(
-                    1, -(-db.seqs_per_bucket // (v_num * config.dynamic_grid))
+                if meta is not None:
+                    stats.subject_count += sum(
+                        c - e for c, e in zip(meta.block_counts, meta.extra_counts)
+                    )
+            if meta is None:
+                meta = ShardMeta(
+                    host_id, n_hosts, len(queries), [], [],
+                    dtype=np.dtype(write_dtype).name,
+                    seqs_per_bucket=db.seqs_per_bucket,
+                    db_subjects=db.total_count,
+                    ratios=static_ratios,
                 )
-            balancer = mh.DynamicBalancer(n_hosts, initial_ratios=shard_ratios)
-            # Announce this role before the warm-up: a first nvcc build of
-            # the kernel library can outlast the base dead-peer timeout, and
-            # peers wait 10x longer for a host that has said hello
-            # (read_bucket_times).
-            mh.write_hello(sync_dir, host_id, sync_token)
-            if done_buckets:
-                for b in range(done_buckets):
-                    if not os.path.exists(
-                        mh.bucket_time_path(sync_dir, b, host_id, sync_token)
-                    ):
-                        # Crashed after writing bucket b's scores but before
-                        # publishing its time; peers are still blocked on this
-                        # file, so a neutral re-publish keeps everyone moving
-                        # on one consistent schedule.
-                        mh.write_bucket_time(sync_dir, b, host_id, 1.0,
-                                             token=sync_token)
-                    balancer.update(mh.read_bucket_times(
-                        sync_dir, b, n_hosts, timeout=config.sync_timeout,
-                        token=sync_token,
-                    ))
-            elif not resume:
-                # A resumed role whose shard lost all buckets must still not
-                # delete time files its peers may have consumed already.
-                mh.clear_bucket_times(sync_dir, host_id, token=sync_token)
-            dyn_ratios = list(balancer.ratios)
-    else:
-        if resume:
-            done_buckets = result_io.resume_point(
-                result_path, len(queries), write_dtype=write_dtype,
-                expected_buckets=db.bucket_counts(),
+            writer_fp = open(result_path, "ab" if done_buckets else "wb")
+            if dynamic:
+                # Live re-splitting (the reference's -D, cal_on_all_dynamic,
+                # original/BGSA_KNC/cal_all.c:772-1487): each bucket's split comes
+                # from the measured per-host times of the previous bucket,
+                # exchanged as files in sync_dir; every host replays the same
+                # published times, so the ratio schedule is bit-identical on all
+                # of them. Slices are aligned to `chunk` (seqs_per_bucket /
+                # dynamic_grid lanes), which the schedule and the shard files
+                # follow.
+                from .parallel import multihost as mh
+
+                sync_dir = sync_dir or (os.path.dirname(result_path) or ".")
+                # an explicit --sync-dir need not pre-exist (every host creates
+                # it; makedirs is atomic-enough for concurrent roles)
+                os.makedirs(sync_dir, exist_ok=True)
+                # Time files carry a run-identity token so a reused sync_dir's
+                # stale files from a previous (different) run can never be read
+                # as this run's times (which would silently fork the schedule
+                # across hosts).
+                sync_token = mh.run_token(
+                    query_path, db_path, n_hosts, shard_ratios, config.bucket_size
+                )
+                chunk = v_num
+                if db.bucket_count > 1:
+                    chunk = v_num * max(
+                        1, -(-db.seqs_per_bucket // (v_num * config.dynamic_grid))
+                    )
+                balancer = mh.DynamicBalancer(n_hosts, initial_ratios=shard_ratios)
+                # Announce this role before the warm-up: a first nvcc build of
+                # the kernel library can outlast the base dead-peer timeout, and
+                # peers wait 10x longer for a host that has said hello
+                # (read_bucket_times).
+                mh.write_hello(sync_dir, host_id, sync_token)
+                if done_buckets:
+                    for b in range(done_buckets):
+                        if not os.path.exists(
+                            mh.bucket_time_path(sync_dir, b, host_id, sync_token)
+                        ):
+                            # Crashed after writing bucket b's scores but before
+                            # publishing its time; peers are still blocked on this
+                            # file, so a neutral re-publish keeps everyone moving
+                            # on one consistent schedule.
+                            mh.write_bucket_time(sync_dir, b, host_id, 1.0,
+                                                 token=sync_token)
+                        balancer.update(mh.read_bucket_times(
+                            sync_dir, b, n_hosts, timeout=config.sync_timeout,
+                            token=sync_token,
+                        ))
+                elif not resume:
+                    # A resumed role whose shard lost all buckets must still not
+                    # delete time files its peers may have consumed already.
+                    mh.clear_bucket_times(sync_dir, host_id, token=sync_token)
+                dyn_ratios = list(balancer.ratios)
+        else:
+            if resume:
+                done_buckets = result_io.resume_point(
+                    result_path, len(queries), write_dtype=write_dtype,
+                    expected_buckets=db.bucket_counts(),
+                )
+            writer = result_io.ResultWriter(
+                result_path, ref_count=len(queries), block_num=db.bucket_count,
+                device_num=1, write_dtype=write_dtype, append=done_buckets > 0,
             )
-        writer = result_io.ResultWriter(
-            result_path, ref_count=len(queries), block_num=db.bucket_count,
-            device_num=1, write_dtype=write_dtype, append=done_buckets > 0,
-        )
 
-    if done_buckets < db.bucket_count:
-        # The nvcc build (first use) and the CUDA contexts, outside cal_time
-        # and the -D balancer's bucket times; one library serves every
-        # bucket's geometry.
-        with Span("warm", stats, "compile_time"):
-            engine.warm()
+        if done_buckets < db.bucket_count:
+            # The nvcc build (first use) and the CUDA contexts, outside cal_time
+            # and the -D balancer's bucket times; one library serves every
+            # bucket's geometry.
+            with Span("warm", stats, "compile_time"):
+                engine.warm()
 
-    # Reader thread keeps the device fed (the reference's input_task thread).
-    buckets: queue.Queue = queue.Queue(maxsize=config.prefetch)
-    stop_reader = threading.Event()
+        # Reader thread keeps the device fed (the reference's input_task thread).
+        buckets: queue.Queue = queue.Queue(maxsize=config.prefetch)
+        stop_reader = threading.Event()
 
-    def read_all():
-        # A mid-run read failure (disk error, database truncated while we
-        # run) must surface in the main loop, not silently kill this thread
-        # — without the sentinel the main loop would block on buckets.get()
-        # forever. The reference's input thread exits the whole process on
-        # read errors (file.c:13-16); we raise instead.
-        try:
-            payload = None
-            for bucket in db:
-                payload = bucket
+        def put(item) -> bool:
+            """Hand ``item`` to the main thread; False where the main loop
+            stopped first (don't block on a full queue). The wait is billed to
+            reader_put_wait_time."""
+            t0 = time.perf_counter()
+            try:
                 while not stop_reader.is_set():
                     try:
-                        buckets.put(bucket, timeout=0.2)
-                        payload = None
-                        break
+                        buckets.put(item, timeout=0.2)
+                        return True
                     except queue.Full:
                         continue
-                if stop_reader.is_set():
-                    return  # main loop failed; don't block on a full queue
-        except BaseException as e:  # noqa: BLE001 — forwarded, re-raised below
-            # BaseException (not Exception) on purpose: a KeyboardInterrupt/
-            # SystemExit landing here would otherwise kill the thread with
-            # no sentinel and deadlock the main loop on buckets.get().  The
-            # main loop re-raises interrupt-class exceptions as themselves
-            # (not wrapped in OSError) to keep signal semantics.
-            payload = _ReaderFailed(e)
-        while not stop_reader.is_set():
-            try:
-                buckets.put(payload, timeout=0.2)
-                return
-            except queue.Full:
-                continue
+                return False
+            finally:
+                stats.reader_put_wait_time += time.perf_counter() - t0
 
-    reader = threading.Thread(target=read_all, daemon=True)
-    reader.start()
+        def read_all():
+            # A mid-run read failure (disk error, database truncated while we
+            # run) must surface in the main loop, not silently kill this thread
+            # — without the sentinel the main loop would block on buckets.get()
+            # forever. The reference's input thread exits the whole process on
+            # read errors (file.c:13-16); we raise instead.
+            try:
+                for bucket in db:
+                    if not put(bucket):
+                        return
+                end = None
+            except BaseException as e:  # noqa: BLE001 — forwarded, re-raised below
+                # BaseException (not Exception) on purpose: a KeyboardInterrupt/
+                # SystemExit landing here would otherwise kill the thread with
+                # no sentinel and deadlock the main loop on buckets.get().  The
+                # main loop re-raises interrupt-class exceptions as themselves
+                # (not wrapped in OSError) to keep signal semantics.
+                end = _ReaderFailed(e)
+            put(end)
+
+        reader = threading.Thread(target=read_all, daemon=True)
+        reader.start()
 
     # Result events drain with a lag of one scoring step, so the device
     # computes step k+1 while step k's scores download and hit disk (the
@@ -575,19 +581,20 @@ def run_bucketed(
             if ev[0] == "bucket":
                 writer.start_bucket(*ev[1:])
                 continue
-            _, dev, real, bidx, qi = ev
+            _, dev, real, bidx, _ = ev
             # Reference accounting split (cal_sse.c:485 vs its output
             # thread): compute belongs to cal, the result download to
             # write. Fetching one score waits for the bucket's kernels, so
             # their completion is billed to cal_time without the D2H copy
             # of the whole score block.
-            with Span("fetch", stats, "cal_time", bucket=bidx, query_bucket=qi) as fetch:
+            with Span("fetch", stats, "cal_time") as fetch:
                 np.asarray(dev[0, 0])
             while len(stats.bucket_cal_times) <= bidx:
                 stats.bucket_cal_times.append(0.0)
             stats.bucket_cal_times[bidx] += fetch.seconds
-            with Span("write", stats, "write_time", bucket=bidx, query_bucket=qi):
-                host_scores = np.asarray(dev)[:, :real]
+            with Span("write", stats, "write_time"):
+                with Span("download"):
+                    host_scores = np.asarray(dev)[:, :real]
                 if shard is not None:
                     writer_fp.write(host_scores.tobytes())
                 else:
@@ -597,7 +604,7 @@ def run_bucketed(
     try:
         bucket_index = -1
         while True:
-            with Span("read_wait", stats, "read_wait_time", bucket=bucket_index + 1):
+            with Span("read_wait", stats, "read_wait_time"):
                 bucket = buckets.get()
             if bucket is None:
                 break
@@ -654,14 +661,13 @@ def run_bucketed(
                 stats.scored_rows += real
                 transport, payload = bucket.transport, bucket.payload
                 if transport is None:
-                    with Span("transport_pack", stats, "pack_time", bucket=bucket_index):
+                    with Span("transport_pack", stats, "pack_time"):
                         transport, payload = pack.select_transport(
                             codes, n_shards=engine.n_shards, threads=_pack_threads(config)
                         )
                 for qi, qb in enumerate(q_buckets):
                     # async: drain's fetch waits for the device
-                    with Span("dispatch", stats, "cal_time", bucket=bucket_index,
-                              query_bucket=qi):
+                    with Span("dispatch", stats, "cal_time"):
                         dev_scores = engine.scores_packed(qb, transport, payload, db.length)
                     stats.add_launches(engine.take_counts())
                     events.append(("scores", dev_scores, real, bucket_index, qi))

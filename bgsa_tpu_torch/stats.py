@@ -5,12 +5,13 @@ Mirrors the reference's end-of-run report (``cal_cpu.c:459-475``):
 with cells = ref_len * ref_count * read_len * subject_count.
 
 The port's own copy of ``bgsa_tpu.stats``: the same fields, JSON and
-report, plus thirteen fields the reference lacks (the reader wait; the
-reader thread's read and encode seconds, the buckets its native pass
-encoded and those whose transport payload it packed; the rows scored; the
-BitPAl launches' word-columns, those on the tiled kernel, and their largest
-scratch; the Myers launches' word-columns, those on the strip kernels,
-those of them on the wavefront, and their largest carry buffer),
+report, plus fourteen fields the reference lacks (the reader wait; the
+reader thread's read and encode seconds, its wait on a full queue, the
+buckets its native pass encoded and those whose transport payload it
+packed; the rows scored; the BitPAl launches' word-columns, those on the
+tiled kernel, and their largest scratch; the Myers launches' word-columns,
+those on the strip kernels, those of them on the wavefront, and their
+largest carry buffer),
 ``LaunchCounts``, which a launcher fills and ``RunStats.add_launches`` adds
 to its family's fields, and ``Span``, which times a phase on the host clock
 and names it in a ``torch.profiler`` trace.
@@ -95,6 +96,9 @@ class RunStats:
     # writes them, and the main thread reads them after joining it.
     reader_read_time: float = 0.0
     reader_encode_time: float = 0.0
+    # run_bucketed's reader thread blocked in buckets.put() on a full
+    # queue (the main thread behind); written and read as the two above.
+    reader_put_wait_time: float = 0.0
     reader_native_buckets: int = 0
     reader_packed_buckets: int = 0
     # Subject rows handed to the engine, once per database bucket: the real
@@ -170,26 +174,21 @@ class Span:
     that opens ``torch.profiler.record_function("bgsa.<name>")``, so that a
     profiler trace names the phase on the clock of its device activity, and
     adds the block's host seconds to ``stats.<field>`` where both are given.
-    ``ids`` (``bucket=``, ``query_bucket=``) go into the range's ``args``,
-    the same for every span of one bucket. ``seconds`` holds the block's
-    time once it has exited."""
+    The seconds are read inside the range, so the interval billed nests in
+    the one the trace records. ``seconds`` holds the block's time once it
+    has exited."""
 
-    __slots__ = ("name", "args", "stats", "field", "seconds", "_range", "_t0")
+    __slots__ = ("name", "stats", "field", "seconds", "_range", "_t0")
 
-    def __init__(self, name: str, stats: RunStats | None = None, field: str | None = None,
-                 **ids):
+    def __init__(self, name: str, stats: RunStats | None = None, field: str | None = None):
         self.name = "bgsa." + name
-        self.args = " ".join(f"{k}={v}" for k, v in ids.items()) or None
         self.stats, self.field = stats, field
         self.seconds = 0.0
 
     def __enter__(self) -> Span:
-        self._range = torch.profiler.record_function(self.name, self.args)
-        # Read the clock just before the range's enter and exit ops: each
-        # takes its time stamp as it drops the interpreter lock, and may wait
-        # for the lock on its way back (held by the reader thread, say).
-        self._t0 = time.perf_counter()
+        self._range = torch.profiler.record_function(self.name)
         self._range.__enter__()
+        self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:

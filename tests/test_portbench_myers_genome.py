@@ -44,7 +44,8 @@ SHARED = ("driver.unbilled_share", "driver.pack_s", "driver.read_wait_s", "drive
           "driver.reader_encode_s", "driver.native_encode_share", "driver.reader_pack_share",
           "engine.cal_gcups", "engine.pad_share", "engine.myers_strip_share",
           "engine.myers_carry_gib", "device.torch_ops_ms", "device.idle_share",
-          "kernel.myers_roofline")
+          "kernel.myers_roofline", "device.idle_unspanned_share", "driver.download_idle_s",
+          "driver.reader_put_wait_s")
 
 
 # -- the cell's route and buckets ------------------------------------------------

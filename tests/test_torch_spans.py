@@ -1,12 +1,14 @@
 """The port's spans and run counters on the CPU.
 
 Every phase of the bucketed driver and of the engines appears in a
-``torch.profiler`` trace once per bucket or query bucket, the engines'
-spans inside ``bgsa.dispatch``; each driver span's summed duration agrees
-with the ``RunStats`` field it bills; the reader wait, the reader's own
-seconds, the buckets it packed and the rows scored are counted; a single
-host's main thread packs nothing, a host role's packs its slice of each
-bucket; ``align()`` names its phases.
+``torch.profiler`` trace once per run, bucket or query bucket, the engines'
+spans inside ``bgsa.dispatch``, the score download inside ``bgsa.write``,
+the warm-up inside ``bgsa.setup``; each driver span's summed duration
+agrees with the ``RunStats`` field it bills; the reader wait, the reader's
+own seconds and its wait on a full queue, the buckets it packed and the
+rows scored are counted; a single host's main thread packs nothing, a host
+role's packs its slice of each bucket; ``align()`` and the CLI name their
+phases.
 """
 
 import gc
@@ -20,6 +22,7 @@ import torch
 
 from bgsa_tpu_torch import Scoring, align
 from bgsa_tpu_torch.banded_pipeline import run_banded
+from bgsa_tpu_torch.io import result as result_io
 from bgsa_tpu_torch.io import seqfile
 from bgsa_tpu_torch.pipeline import PipelineConfig, run_alignment
 from bgsa_tpu_torch.stats import RunStats, Span
@@ -95,11 +98,36 @@ def test_every_span_once_per_bucket_or_query_bucket(traced):
         counts[name] = counts.get(name, 0) + 1
     per_dispatch = BUCKETS * QUERY_BUCKETS
     # no bgsa.transport_pack: the reader thread packs every bucket
-    want = {"engine": 1, "open": 1, "warm": 1, "close": 1,
+    want = {"engine": 1, "open": 1, "setup": 1, "warm": 1, "close": 1,
             "read_wait": BUCKETS + 1,  # the last get() takes the end-of-file mark
             "dispatch": per_dispatch, "fetch": per_dispatch, "write": per_dispatch,
-            PACKER[family]: per_dispatch, **{n: per_dispatch for n in ENGINE_SPANS}}
+            "download": per_dispatch, PACKER[family]: per_dispatch,
+            **{n: per_dispatch for n in ENGINE_SPANS}}
     assert counts == want
+
+
+def inside(spans, child, parent) -> int:
+    """How many ``child`` spans lie inside some ``parent`` span."""
+    outer = [(t0, t1) for name, t0, t1 in spans if name == parent]
+    return sum(any(p0 <= t0 and t1 <= p1 for p0, p1 in outer)
+               for name, t0, t1 in spans if name == child)
+
+
+def test_download_nests_in_each_write(traced):
+    _, _, spans, _ = traced
+    writes = [(t0, t1) for name, t0, t1 in spans if name == "write"]
+    assert inside(spans, "download", "write") == len(writes) == BUCKETS * QUERY_BUCKETS
+    for w0, w1 in writes:  # one download a write
+        assert sum(w0 <= t0 and t1 <= w1 for name, t0, t1 in spans if name == "download") == 1
+
+
+def test_setup_holds_the_warm_up_and_no_bucket(traced):
+    _, _, spans, _ = traced
+    (s0, s1), = [(t0, t1) for name, t0, t1 in spans if name == "setup"]
+    assert inside(spans, "warm", "setup") == 1
+    (o0, o1), = [(t0, t1) for name, t0, t1 in spans if name == "open"]
+    assert o1 <= s0  # after the open, before the first bucket
+    assert all(s1 <= t0 for name, t0, _ in spans if name in ("read_wait", "dispatch"))
 
 
 def test_engine_spans_nest_in_dispatch(traced):
@@ -175,6 +203,27 @@ def test_read_wait_bills_a_slow_reader(tmp_path, monkeypatch, family):
         assert stats.read_wait_time >= 0.04 * (BUCKETS - 1)
 
 
+@pytest.mark.parametrize("family", sorted(RUNS))
+def test_put_wait_bills_a_slow_main_thread(tmp_path, monkeypatch, family):
+    """With each score block's file write slowed by 50 ms, the reader fills
+    the queue (two buckets) and waits on it: its end-of-file mark goes in
+    only once the main thread takes the second bucket, after the first
+    bucket's second query bucket has drained its first (a write)."""
+    q, d = write_inputs(tmp_path)
+    write = result_io.ResultWriter.write_scores
+
+    def slow(self, scores):
+        time.sleep(0.05)
+        return write(self, scores)
+
+    monkeypatch.setattr(result_io.ResultWriter, "write_scores", slow)
+    stats = RUNS[family](q, d, str(tmp_path / "r.bin"))
+    assert stats.write_time >= 0.05 * BUCKETS * QUERY_BUCKETS
+    assert stats.reader_put_wait_time >= 0.04
+    assert stats.reader_put_wait_time < stats.total_time
+    assert json.loads(stats.to_json())["reader_put_wait_time"] == stats.reader_put_wait_time
+
+
 @pytest.mark.parametrize("k", [None, 3], ids=["myers", "banded"])
 def test_align_names_its_phases(tmp_path, k):
     rng = np.random.default_rng(3)
@@ -189,12 +238,36 @@ def test_align_names_its_phases(tmp_path, k):
     assert names.count("stream_pack" if k else "eq_pack") == 1
 
 
-def test_span_adds_its_seconds_to_its_field():
+def test_span_adds_its_seconds_to_its_field(tmp_path):
     stats = RunStats(pack_time=1.0)
-    with Span("transport_pack", stats, "pack_time", bucket=2) as span:
-        time.sleep(0.01)
-    assert span.name == "bgsa.transport_pack" and span.args == "bucket=2"
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with Span("transport_pack", stats, "pack_time") as span:
+            time.sleep(0.01)
+    assert span.name == "bgsa.transport_pack" and not hasattr(span, "args")
     assert span.seconds >= 0.01 and stats.pack_time == 1.0 + span.seconds
+    # the billed interval is read inside the traced range
+    (name, t0, t1), = bgsa_events(prof, tmp_path / "trace.json")
+    assert name == "transport_pack" and (t1 - t0) * 1e-6 >= span.seconds - 1e-6
     with Span("close") as bare:
         pass
-    assert bare.args is None and bare.seconds >= 0
+    assert bare.name == "bgsa.close" and bare.seconds >= 0
+
+
+def test_cli_spans_its_head_and_tail_and_no_run(tmp_path):
+    """``bgsa.cli`` twice a CLI run: the checks and probes before the run,
+    the stats and report after it; no span holds the run's own spans."""
+    from bgsa_tpu_torch import cli
+
+    q, d = write_inputs(tmp_path)
+    argv = ["-q", q, "-d", d, "-f", str(tmp_path / "r.bin"), "--stats-json",
+            str(tmp_path / "s.json"), "--quiet", "--device", "cpu"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert cli.align_main(argv) == 0
+    spans = bgsa_events(prof, tmp_path / "trace.json")
+    heads = sorted((t0, t1) for name, t0, t1 in spans if name == "cli")
+    run = {name: (t0, t1) for name, t0, t1 in spans if name in ("engine", "open", "setup", "close")}
+    assert len(heads) == 2 and len(run) == 4
+    assert heads[0][1] <= run["engine"][0] and run["close"][1] <= heads[1][0]
+    for name, t0, t1 in spans:  # no span holds the bucket loop
+        assert not (t0 <= run["setup"][1] and run["close"][0] <= t1), name
+    assert "reader_put_wait_time" in json.loads((tmp_path / "s.json").read_text())
