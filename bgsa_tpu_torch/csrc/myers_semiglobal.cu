@@ -20,10 +20,11 @@
 // chain waits on L2's latency. So up to kRegWords words (myers_regs<W>) a
 // block stages its tile's Eq words in shared memory once and reads every
 // word-column there, at an offset fixed at compile time, which leaves the
-// kernel bound by int32 issue rate and dependency latency; the wavefront
-// (myers_strips_wave) does the same a strip at a time. Past kRegWords words
-// the bound is the same network's: the register instance's cost per word,
-// for every word-column. wgmma and TMA do not apply.
+// kernel bound by int32 issue rate and dependency latency; past kRegWords
+// words both schedules of the strips (myers_strips, myers_strips_wave) do
+// the same a strip at a time. There the bound is the same network's: the
+// register instance's cost per word, for every word-column. wgmma and TMA
+// do not apply.
 //
 // Design (simple first):
 //   * up to kRegWords words (myers_regs<W>, one instance for each W): a
@@ -38,31 +39,31 @@
 //     code; word j is then a shared-memory load at a fixed offset, with no
 //     mask and no bound test. The chunk is the most whole kWarps queries
 //     that still leave the grid kBlocksPerSm blocks on every SM (regs_chunk);
-//   * past kRegWords, one thread per (query, subject) pair: blockIdx.y walks
-//     queries, blockIdx.x * blockDim.x + threadIdx.x is the subject, masked
-//     at S; Eq is read as eq[c][w][s], so neighbouring threads read
-//     neighbouring words; the query row is staged through shared memory in
-//     chunks of kQueryChunk codes, so any query length fits. The words run
-//     in strips of kRegWords (the last may be narrower), one strip after
-//     another over every column (myers_strips), each strip's pv/mv in
-//     registers from its first column to its last. A column's horizontal
-//     carries out of a strip's last word are the next strip's input at that
-//     column: every strip but the last packs them into one hp and one hn
-//     word per 32 columns in a caller-allocated carry buffer (2, ceil(m /
-//     32), Q, S), which the next strip reads back in place; only the last
-//     strip moves the score. On few pairs (the caller's choice: where one
-//     warp a group of 32 subjects would leave the SMs thin) the strips of a
-//     group run as a wavefront over a block's four warps
-//     (myers_strips_wave), one batch of 32 columns a step, a barrier after
-//     each step, its query codes read a batch at a time, one a lane, and
-//     shuffled out. Each warp reads its strip's Eq words from its own
-//     shared-memory tile, staged at the strip's first batch: (5 + 1 planes
-//     of zeros) x 32 words x 32 lanes, 24,576 B a warp and 98,304 B a
-//     block, so 2 blocks fit on an SM (264 on a 132-SM card, where the
-//     registers allowed 4): a grid of 672 blocks runs as 3 rounds of 264
-//     instead of 2 of 528, one of 192 as 0.73 of a round instead of 0.36. The one-warp strips keep their global loads: their
-//     block of 128 subjects would need four times the tile a strip, with
-//     another residency trade;
+//   * past kRegWords, the words run in strips of kRegWords (the last may be
+//     narrower), one strip after another over every column, each strip's
+//     pv/mv in registers from its first column to its last. A column's
+//     horizontal carries out of a strip's last word are the next strip's
+//     input at that column: every strip but the last packs them into one hp
+//     and one hn word per 32 columns in a caller-allocated carry buffer (2,
+//     ceil(m / 32), Q, S), which the next strip reads back in place; only
+//     the last strip moves the score. Each strip reads its Eq words from a
+//     shared-memory tile of (5 + 1 planes of zeros) x 32 words x 32 lanes,
+//     24,576 B, read as in myers_regs. On many pairs (myers_strips) the
+//     block is myers_regs': a tile of 32 subjects whose four warps take the
+//     queries of its chunk in turn; the strip loop is the block's, which
+//     stages each strip's words between two barriers, and each warp runs its
+//     queries over every column of the strip, its query row staged in
+//     chunks of kQueryChunk codes, so any query length fits. The registers
+//     set the residency (kStripBlocksPerSm). On few pairs (the caller's
+//     choice: where one warp a group of 32 subjects would leave the SMs
+//     thin) the strips of a group run as a wavefront over a block's four
+//     warps (myers_strips_wave), one batch of 32 columns a step, a barrier
+//     after each step, its query codes read a batch at a time, one a lane,
+//     and shuffled out; each warp stages its strip's tile at the strip's
+//     first batch, 98,304 B a block, so 2 blocks fit on an SM (264 on a
+//     132-SM card, where the registers allowed 4): a grid of 672 blocks
+//     runs as 3 rounds of 264 instead of 2 of 528, one of 192 as 0.73 of a
+//     round instead of 0.36;
 //   * query codes outside 0..4 match nothing (no out-of-range Eq reads).
 // The launch uses the caller's stream, allocates nothing and does not
 // synchronize; the C entry point returns cudaGetLastError().
@@ -85,12 +86,13 @@ constexpr int kRegWords = 32;
 constexpr int kBatch = 32;  // columns a carry word holds
 static_assert(kBatch == kLanes, "a lane holds one column's query code of a batch");
 constexpr int kMaxGridY = 65535;
-constexpr int kTile = kLanes;       // subjects a myers_regs block: one a lane
+constexpr int kTile = kLanes;       // subjects a myers_regs or myers_strips block: one a lane
 constexpr int kPlanes = kChars + 1; // the tile's planes: A, C, G, T, N, then zeros
-constexpr int kBlocksPerSm = 128;   // myers_regs blocks a grid leaves every SM, at least
-constexpr int kWavePlane = kRegWords * kLanes;  // words a plane of a wavefront warp's tile
-constexpr int kWaveSlice = kPlanes * kWavePlane;  // words a wavefront warp's tile: 24,576 B
-constexpr int kWaveSmem = kWarps * kWaveSlice * 4;  // a wavefront block's tiles: 98,304 B
+constexpr int kBlocksPerSm = 128;   // myers_regs / myers_strips blocks a grid leaves every SM
+constexpr int kStripPlane = kRegWords * kLanes;  // words a plane of a strip's tile
+constexpr int kStripTile = kPlanes * kStripPlane;  // words a strip's tile: 24,576 B
+constexpr int kStripBlocksPerSm = 4;  // myers_strips blocks an SM: at most 128 registers
+constexpr int kWaveSmem = kWarps * kStripTile * 4;  // a wavefront block's tiles: 98,304 B
 constexpr int kWaveBlocksPerSm = 2;  // wavefront blocks an SM: what its tiles leave room for
 
 // One word of one column. pv/mv: this word's vertical state; hp/hn: the
@@ -112,14 +114,6 @@ __device__ __forceinline__ void myers_word(uint32_t eq, uint32_t& pv, uint32_t& 
   mv = phs & xv;
   hp = hp_out;
   hn = hn_out;
-}
-
-// Stage queries[q][c0 : c0 + n] into shared memory (block-wide).
-__device__ __forceinline__ void stage_query(uint8_t* qs, const uint8_t* __restrict__ query,
-                                            int c0, int n) {
-  __syncthreads();  // every thread is done with the previous chunk
-  for (int i = threadIdx.x; i < n; i += blockDim.x) qs[i] = query[c0 + i];
-  __syncthreads();
 }
 
 __device__ __forceinline__ int score_delta(uint32_t ph, uint32_t mh, int last_shift) {
@@ -181,32 +175,31 @@ myers_regs(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ queries,
 }
 
 // One strip's batch of nb <= 32 columns (b, the batch's index, picks its
-// carry words): the strip's sw words from eq_s, pv/mv carried in registers
-// from batch to batch. The first word takes column t's incoming carries at
-// bit t of carries[0 / 1][b][q][s] (at points at this pair's word of plane 0;
-// strip 0 takes the top boundary instead); the last word's outgoing ones are
-// stored there in place (`store`: every strip but the last); only the last
-// strip moves the score. code(t): the query code of the batch's column t.
-template <typename Code>
-__device__ __forceinline__ void strip_batch(const uint32_t* eq_s, size_t plane, int S, int sw,
-                                            uint32_t (&pv)[kRegWords], uint32_t (&mv)[kRegWords],
-                                            uint32_t* at, size_t carry_plane, bool first,
-                                            bool last, bool store, int nb, Code code,
-                                            int last_shift, int is_global, int& score,
-                                            int& min_score) {
+// carry words), pv/mv carried in registers from batch to batch, the strip's
+// Eq words from a shared-memory tile. tile: this lane's column of the tile,
+// word j of plane p at tile[(p * kRegWords + j) * kLanes]; code(t): the query
+// code of the batch's column t. The first word takes column t's incoming
+// carries at bit t of carries[0 / 1][b][q][s] (at points at this pair's word
+// of plane 0; strip 0 takes the top boundary instead); the last word's
+// outgoing ones are stored there in place (`store`: every strip but the
+// last); only the last strip moves the score. kFull: the strip has all
+// kRegWords words, so no word is guarded (else the first sw).
+template <bool kFull, typename Code>
+__device__ __forceinline__ void tile_batch(const uint32_t* tile, int sw,
+                                           uint32_t (&pv)[kRegWords], uint32_t (&mv)[kRegWords],
+                                           uint32_t* at, size_t carry_plane, bool first,
+                                           bool last, bool store, int nb, Code code,
+                                           int last_shift, int is_global, int& score,
+                                           int& min_score) {
   const uint32_t hp_in = first ? (is_global ? 0xFFFFFFFFu : 0u) : at[0];
   const uint32_t hn_in = first ? 0u : at[carry_plane];
   uint32_t hp_out = 0u, hn_out = 0u;
   for (int t = 0; t < nb; ++t) {
-    const int c = code(t);
-    const uint32_t keep = c < kChars ? 0xFFFFFFFFu : 0u;
-    const uint32_t* eq_c = eq_s + static_cast<size_t>(min(c, kChars - 1)) * plane;
+    const uint32_t* const eq_c = tile + min(code(t), kChars) * kStripPlane;
     uint32_t hp = (hp_in >> t) & 1u, hn = (hn_in >> t) & 1u, ph = 0u, mh = 0u;
 #pragma unroll
     for (int j = 0; j < kRegWords; ++j) {
-      if (j < sw) {
-        myers_word(eq_c[static_cast<size_t>(j) * S] & keep, pv[j], mv[j], hp, hn, ph, mh);
-      }
+      if (kFull || j < sw) myers_word(eq_c[j * kLanes], pv[j], mv[j], hp, hn, ph, mh);
     }
     hp_out |= hp << t;
     hn_out |= hn << t;
@@ -235,81 +228,85 @@ __device__ __forceinline__ void reset_strip(uint32_t (&pv)[kRegWords],
 // the carries that strip k - 1's last word gave out at the same column (the
 // top boundary for strip 0), read as bits of carries[plane][column / 32]
 // [q][s]; every strip but the last writes its own there in their place.
-// At least one block per SM is all the launch bounds ask (as
-// global31_regs found, a block minimum can spill the state arrays).
-__global__ void __launch_bounds__(kThreads, 1)
+//
+// The block is myers_regs': a tile of kTile subjects (blockIdx.x), one a
+// lane, and the queries q0 + warp, q0 + warp + kWarps, ... of its chunk
+// [q0, q0 + chunk) (blockIdx.y) taken by its warps in turn. The strip loop
+// is the block's: at each strip the block copies the strip's (5, sw, kTile)
+// Eq words into shared memory, coalesced, between two barriers
+// ([plane][word][lane], 20,480 B, and a sixth plane of zeros, written once,
+// that query codes outside 0..4 read: 24,576 B), and each warp then runs
+// each of its queries over every column of the strip, its pv/mv reset, its
+// query row staged kQueryChunk codes at a time with warp synchronization
+// only. A warp with no query still reaches every barrier. A column picks its
+// plane once from the query code, and word j is a shared-memory load at a
+// fixed offset: no mask, no clamp of the code per word, no bound test on a
+// full strip and no 64-bit address arithmetic. Lanes past S compute on a
+// column of zeros and subject S - 1's carries and store nothing.
+// kStripBlocksPerSm blocks an SM are what the launch bounds ask: the
+// registers, not the tile, set the residency. At 4, ptxas fits 128 registers
+// with no spill; left at 1 it took 181 (2 blocks an SM), and a 5 kbp bucket
+// ran 18 % longer.
+__global__ void __launch_bounds__(kThreads, kStripBlocksPerSm)
 myers_strips(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ queries,
              int32_t* __restrict__ out, uint32_t* __restrict__ carries, int Q, int m, int W,
-             int S, int read_len, int factor, int is_global) {
-  __shared__ uint8_t qs[kQueryChunk];
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+             int S, int read_len, int factor, int is_global, int chunk) {
+  __shared__ uint32_t tile[kStripTile];  // [plane][word][lane]
+  __shared__ uint8_t rows[kWarps][kQueryChunk];
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int s0 = blockIdx.x * kTile;
+  const int s = s0 + lane;
   const bool active = s < S;
+  const int sr = active ? s : S - 1;  // the subject whose carries a lane reads
+  for (int i = threadIdx.x; i < kStripPlane; i += kThreads) tile[kChars * kStripPlane + i] = 0u;
   const int last_shift = (read_len - 1) % kWordBits;
-  const size_t plane = static_cast<size_t>(W) * S;
   const size_t pairs = static_cast<size_t>(Q) * S;
   const size_t carry_plane = static_cast<size_t>((m + kBatch - 1) / kBatch) * pairs;
-  for (int q = blockIdx.y; q < Q; q += gridDim.y) {
-    const size_t pair = static_cast<size_t>(q) * S + s;
-    int score = read_len;
-    int min_score = read_len;
-    for (int w0 = 0; w0 < W; w0 += kRegWords) {
-      const int sw = min(kRegWords, W - w0);
-      const bool first = w0 == 0;
-      const bool last = w0 + sw == W;
-      const uint32_t* const eq_s = eq + static_cast<size_t>(w0) * S + s;
+  const int q0 = blockIdx.y * chunk, end = q0 + min(chunk, Q - q0);
+  uint8_t* const qs = rows[warp];
+  for (int w0 = 0; w0 < W; w0 += kRegWords) {
+    const int sw = min(kRegWords, W - w0);
+    const bool first = w0 == 0;
+    const bool last = w0 + sw == W;
+    __syncthreads();  // every warp is done with the previous strip's tile
+    for (int i = threadIdx.x; i < kChars * kStripPlane; i += kThreads) {
+      const int row = i / kTile, w = row % kRegWords, t = s0 + i % kTile;  // row: plane, word
+      tile[i] = w < sw && t < S
+                    ? eq[(static_cast<size_t>(row / kRegWords) * W + w0 + w) * S + t] : 0u;
+    }
+    __syncthreads();
+    for (int q = q0 + warp; q < end; q += kWarps) {
+      const uint8_t* const query = queries + static_cast<size_t>(q) * m;
+      uint32_t* const at = carries + static_cast<size_t>(q) * S + sr;
+      int score = read_len;
+      int min_score = read_len;
       uint32_t pv[kRegWords], mv[kRegWords];
       reset_strip(pv, mv);
       for (int c0 = 0; c0 < m; c0 += kQueryChunk) {
         const int n = min(kQueryChunk, m - c0);
-        stage_query(qs, queries + static_cast<size_t>(q) * m, c0, n);
-        if (!active) continue;
+        __syncwarp();  // every lane is done with the previous row
+        for (int i = lane; i < n; i += kLanes) qs[i] = query[c0 + i];
+        __syncwarp();
         for (int b = 0; b < n; b += kBatch) {  // 32 columns: one carry word a plane
           const uint8_t* const row = qs + b;
-          strip_batch(eq_s, plane, S, sw, pv, mv,
-                      carries + static_cast<size_t>((c0 + b) / kBatch) * pairs + pair,
-                      carry_plane, first, last, !last, min(kBatch, n - b),
-                      [row](int t) { return static_cast<int>(row[t]); }, last_shift, is_global,
-                      score, min_score);
+          const auto code = [row](int t) { return static_cast<int>(row[t]); };
+          uint32_t* const at_b = at + static_cast<size_t>((c0 + b) / kBatch) * pairs;
+          const int nb = min(kBatch, n - b);
+          if (sw == kRegWords) {
+            tile_batch<true>(tile + lane, sw, pv, mv, at_b, carry_plane, first, last,
+                             !last && active, nb, code, last_shift, is_global, score,
+                             min_score);
+          } else {
+            tile_batch<false>(tile + lane, sw, pv, mv, at_b, carry_plane, first, last,
+                              !last && active, nb, code, last_shift, is_global, score,
+                              min_score);
+          }
         }
       }
+      if (last && active) {
+        out[static_cast<size_t>(q) * S + s] = (is_global ? score : min_score) * factor;
+      }
     }
-    if (active) out[pair] = (is_global ? score : min_score) * factor;
-  }
-}
-
-// One batch of a wavefront strip: strip_batch's work with the strip's Eq
-// words from the warp's tile. tile: this lane's column of the tile, word j
-// of plane p at tile[(p * kRegWords + j) * kLanes]; codes: the batch's
-// query codes, column t's in lane t. kFull: the strip has all kRegWords
-// words, so no word is guarded (else the first sw).
-template <bool kFull>
-__device__ __forceinline__ void wave_batch(const uint32_t* tile, int sw,
-                                           uint32_t (&pv)[kRegWords], uint32_t (&mv)[kRegWords],
-                                           uint32_t* at, size_t carry_plane, bool first,
-                                           bool last, bool store, int nb, int codes,
-                                           int last_shift, int is_global, int& score,
-                                           int& min_score) {
-  const uint32_t hp_in = first ? (is_global ? 0xFFFFFFFFu : 0u) : at[0];
-  const uint32_t hn_in = first ? 0u : at[carry_plane];
-  uint32_t hp_out = 0u, hn_out = 0u;
-  for (int t = 0; t < nb; ++t) {
-    const int c = __shfl_sync(0xFFFFFFFFu, codes, t);
-    const uint32_t* const eq_c = tile + min(c, kChars) * kWavePlane;
-    uint32_t hp = (hp_in >> t) & 1u, hn = (hn_in >> t) & 1u, ph = 0u, mh = 0u;
-#pragma unroll
-    for (int j = 0; j < kRegWords; ++j) {
-      if (kFull || j < sw) myers_word(eq_c[j * kLanes], pv[j], mv[j], hp, hn, ph, mh);
-    }
-    hp_out |= hp << t;
-    hn_out |= hn << t;
-    if (last) {
-      score += score_delta(ph, mh, last_shift);  // ph/mh of word W-1
-      if (!is_global) min_score = min(min_score, score);
-    }
-  }
-  if (store) {
-    at[0] = hp_out;
-    at[carry_plane] = hn_out;
   }
 }
 
@@ -339,8 +336,8 @@ __device__ __forceinline__ void wave_batch(const uint32_t* tile, int sw,
 // to 255 registers). The tiles, not the registers, set the residency:
 // kWaveBlocksPerSm blocks an SM, 264 on a 132-SM card, so a grid of 672
 // blocks runs as 2.55 rounds (3) and one of 192 fills 0.73 of a round.
-// myers_strips keeps its global loads: a block there holds 128 subjects,
-// four times the tile, and trades residency another way.
+// myers_strips shares one such tile among its block's four warps, which
+// run different queries over the same 32 subjects.
 __global__ void __launch_bounds__(kThreads, kWaveBlocksPerSm)
 myers_strips_wave(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ queries,
                   int32_t* __restrict__ out, uint32_t* carries, int Q, int m, int W, int S,
@@ -350,7 +347,7 @@ myers_strips_wave(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ q
   const int s = blockIdx.x * kLanes + lane;
   const bool active = s < S;
   const int sr = active ? s : S - 1;  // the subject a lane reads
-  uint32_t* const tile = wave_tiles + warp * kWaveSlice + lane;  // this lane's column
+  uint32_t* const tile = wave_tiles + warp * kStripTile + lane;  // this lane's column
 #pragma unroll
   for (int j = 0; j < kRegWords; ++j) tile[(kChars * kRegWords + j) * kLanes] = 0u;
   const int last_shift = (read_len - 1) % kWordBits;
@@ -385,13 +382,14 @@ myers_strips_wave(const uint32_t* __restrict__ eq, const uint8_t* __restrict__ q
         const int c0 = b * kBatch;
         const int nb = min(kBatch, m - c0);
         const int codes = lane < nb ? query[c0 + lane] : 0;
+        const auto code = [codes](int t) { return __shfl_sync(0xFFFFFFFFu, codes, t); };
         uint32_t* const at = carries + static_cast<size_t>(b) * pairs + pair;
         if (sw == kRegWords) {
-          wave_batch<true>(tile, sw, pv, mv, at, carry_plane, strip == 0, last, !last && active,
-                           nb, codes, last_shift, is_global, score, min_score);
+          tile_batch<true>(tile, sw, pv, mv, at, carry_plane, strip == 0, last, !last && active,
+                           nb, code, last_shift, is_global, score, min_score);
         } else {
-          wave_batch<false>(tile, sw, pv, mv, at, carry_plane, strip == 0, last,
-                            !last && active, nb, codes, last_shift, is_global, score, min_score);
+          tile_batch<false>(tile, sw, pv, mv, at, carry_plane, strip == 0, last,
+                            !last && active, nb, code, last_shift, is_global, score, min_score);
         }
       }
       __syncthreads();
@@ -412,11 +410,11 @@ RegsKernel regs_kernel(int W, std::integer_sequence<int, I...>) {
   return kernels[W - 1];
 }
 
-// Queries a myers_regs block walks over its tile: the most whole kWarps
-// queries that still leave the grid kBlocksPerSm blocks on every SM of the
-// current device (all of Q where the tiles alone do, kWarps where even
-// that falls short), and no fewer than keep the grid's rows of chunks
-// within kMaxGridY.
+// Queries a myers_regs or myers_strips block walks over its tile: the most
+// whole kWarps queries that still leave the grid kBlocksPerSm blocks on
+// every SM of the current device (all of Q where the tiles alone do, kWarps
+// where even that falls short), and no fewer than keep the grid's rows of
+// chunks within kMaxGridY.
 int regs_chunk(int Q, int tiles) {
   int device = 0, sms = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
@@ -454,14 +452,13 @@ int bgsa_myers_semiglobal(const void* eq, const void* queries, void* out, void* 
   const auto* q = static_cast<const uint8_t*>(queries);
   auto* o = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
+  const int tiles = (S + kTile - 1) / kTile;
+  const int chunk = regs_chunk(Q, tiles);
+  const dim3 grid(tiles, (Q - 1) / chunk + 1);
   if (W <= kRegWords) {
-    const int tiles = (S + kTile - 1) / kTile;
-    const int chunk = regs_chunk(Q, tiles);
-    const dim3 grid(tiles, (Q - 1) / chunk + 1);
     regs_kernel(W, std::make_integer_sequence<int, kRegWords>())<<<grid, kThreads, 0, st>>>(
         e, q, o, Q, m, S, read_len, factor, is_global, chunk);
   } else {
-    const dim3 grid((S + kThreads - 1) / kThreads, Q < kMaxGridY ? Q : kMaxGridY);
     if ((carries == nullptr && m > 0) || (wave && (m + kBatch - 1) / kBatch < kWarps)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -475,12 +472,12 @@ int bgsa_myers_semiglobal(const void* eq, const void* queries, void* out, void* 
         cudaGetLastError();  // returned here: leave no error for the next launch
         return static_cast<int>(smem);
       }
-      const dim3 wave_grid((S + kLanes - 1) / kLanes, grid.y);  // a block a group
+      const dim3 wave_grid(tiles, Q < kMaxGridY ? Q : kMaxGridY);  // a block a group
       myers_strips_wave<<<wave_grid, kThreads, kWaveSmem, st>>>(e, q, o, c, Q, m, W, S,
                                                                 read_len, factor, is_global);
     } else {
       myers_strips<<<grid, kThreads, 0, st>>>(e, q, o, c, Q, m, W, S, read_len, factor,
-                                              is_global);
+                                              is_global, chunk);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -9,7 +9,7 @@ parent commit unpacked with ``git archive`` into a directory that
 other, each turn a child process started in its tree, so each builds and
 imports its own ``bgsa_tpu_torch``. PART names what a turn runs
 (``bitpal``, ``cli``, ``banded``, ``generic``, ``stream``, ``myers_long``,
-``peq``, ``pair``, ``myers``; default all nine). A turn prints:
+``peq``, ``pair``, ``myers``, ``strips``; default all ten). A turn prints:
 
 - the registers, stack and shared memory of every ``banded_packed_kernel``
   instance in the tree's main kernel library, (``stream``) of every
@@ -93,7 +93,24 @@ imports its own ``bgsa_tpu_torch``. PART names what a turn runs
   pipe (``roofline.column_instructions``, a column and a word-column of
   the instance), the kernel timed by CUDA events (median of 5 after a
   warm-up; each run is one launch of 3.7 ms or more), its GCUPS, and the
-  output checksum.
+  output checksum;
+- ``strips``: both schedules of the full-word Myers strips past the
+  register bound, each launched through the C entry point on its own
+  (``myers_strips``, one warp a group of 32 subjects, and
+  ``myers_strips_wave``, the wavefront), global, on skewed subjects (as
+  ``myers_long``) and random queries: for each kernel its registers, static
+  shared memory, the blocks an SM holds (``resident_warps``, the
+  wavefront's 98,304 B of dynamic shared memory added), its column loop's
+  SASS per word-column (``roofline.column_instructions``: the cheapest
+  loop, a full strip's) and a digest of its SASS opcodes and operands, so
+  that an unchanged kernel reads the same in both trees; then the one-warp
+  strips at ``STRIP_ROW`` (Q=20, m=64, S=5,632, 5 kbp) and at the 5 kbp
+  cell's full bucket and tail (Q=20, m=5,000, S=5,632 and 3,200, 5 kbp),
+  and both schedules at Q=20 queries of 1,000 bp against one bucket of 5,
+  10, 20 and 40 kbp subjects (as ``myers_long``): CUDA-event medians of 5
+  after a warm-up, GCUPS, the frozen floor (11 ALU ops a word-column and 2
+  a column at 64 a clock an SM, every SM at its maximum clock) and its
+  share of the time, output checksums.
 
 Exits with the first failing turn's code.
 """
@@ -131,6 +148,8 @@ if "pair" in parts:
     libs += [(build.load().path, "banded_stream_kernel"), (build.load().path, "pair_kernel")]
 if "myers" in parts:
     libs.append((build.load().path, "myers_regs"))
+if "strips" in parts:
+    libs.append((build.load().path, "myers_strips"))
 registers = {}  # mangled name -> registers, from the main library's res-usage
 shared = {}  # mangled name -> static shared memory bytes, the same
 for path, pattern in libs:
@@ -436,6 +455,63 @@ if "myers" in parts:
               f"{Q * m * S * n / statistics.median(t) / 1e6:.1f} GCUPS; output checksum "
               f"{checksum} ({smi})", flush=True)
         del eq, qt
+# (label, Q, m, n, S or None for a bucket's count, schedules: True = wavefront)
+STRIPS = (("STRIP_ROW", 20, 64, 5000, 5632, (False,)),
+          ("5 kbp cell bucket", 20, 5000, 5000, 5632, (False,)),
+          ("5 kbp cell tail", 20, 5000, 5000, 3200, (False,)),
+          ("5 kbp bucket", 20, 1000, 5000, None, (False, True)),
+          ("10 kbp bucket", 20, 1000, 10000, None, (False, True)),
+          ("20 kbp bucket", 20, 1000, 20000, None, (False, True)),
+          ("40 kbp bucket", 20, 1000, 40000, None, (False, True)))
+if "strips" in parts:
+    import hashlib
+    from bgsa_tpu_torch import pack, roofline
+    from bgsa_tpu_torch.ops import myers_semiglobal as ms
+    from bgsa_tpu_torch.pipeline import BUCKET_SIZE
+    functions = roofline.sass_functions(roofline.sass_text(build.load().path))
+    kernels = build.load()
+    for kernel, spec_name, dynamic in (("myers_strips", "myers_semiglobal_strips", 0),
+                                       ("myers_strips_wave", "myers_semiglobal_wave", 98304)):
+        spec = roofline.SASS_SPECS[spec_name]
+        name = [f for f in functions if re.search(spec.function, f)][0]
+        ins = functions[name]
+        per = roofline.column_instructions(ins, spec)
+        digest = hashlib.sha1(repr([x[1:] for x in ins]).encode()).hexdigest()[:12]
+        smem = shared[name] + dynamic
+        print(f"  strips part, {kernel}: registers {registers[name]}, shared memory {smem} B, "
+              f"blocks an SM {resident_warps(registers[name], smem) // 4}; SASS a word-column "
+              f"{per['alu']:.2f} alu, {per['fma']:.2f} fma, {per['issue']:.2f} issue; SASS "
+              f"digest {digest} ({len(ins)} instructions)", flush=True)
+    peak = 64 * roofline.sm_count() * roofline.sm_clock_mhz() * 1e6
+    for label, Q, m, n, S, schedules in STRIPS:
+        S = S or BUCKET_SIZE // (n + 1) // 128 * 128
+        lrng = np.random.default_rng(n + S + m)
+        miss = np.exp(lrng.uniform(np.log(3e-4), np.log(0.75), size=(S, 1))).astype(np.float32)
+        codes = np.where(lrng.random((S, n), dtype=np.float32) < miss,
+                         lrng.integers(1, 4, size=(S, n), dtype=np.int8), np.int8(0))
+        eq = pack.pack_eq(torch.from_numpy(codes).cuda(), 32)
+        del codes
+        qt = torch.from_numpy(lrng.integers(0, 4, size=(Q, m)).astype(np.uint8)).cuda()
+        W = eq.shape[1]
+        out = torch.empty((Q, S), dtype=torch.int32, device="cuda")
+        carries = torch.empty((2, ms.carry_words(m), Q, S), dtype=torch.int32, device="cuda")
+        floor_ms = Q * m * S * (11 * W + 2) / peak * 1e3
+        for wave in schedules:
+            def run():
+                rc = kernels.lib.bgsa_myers_semiglobal(
+                    eq.data_ptr(), qt.data_ptr(), out.data_ptr(), carries.data_ptr(), Q, m, W, S,
+                    n, -1, 1, int(wave), torch.cuda.current_stream().cuda_stream)
+                kernels.check(rc, "myers_semiglobal")
+            run()
+            checksum = int(out.long().sum())
+            t = chip_smoke.cuda_times_ms(run, runs=5, warmup=1)
+            med = statistics.median(t)
+            print(f"  strips part, {label}: {'myers_strips_wave' if wave else 'myers_strips'} "
+                  f"Q={Q} m={m} S={S} n={n} W={W}: kernel median {med:.4f} ms of 5 "
+                  f"({min(t):.4f}-{max(t):.4f}) = {Q * m * S * n / med / 1e6:.1f} GCUPS; floor "
+                  f"{floor_ms:.4f} ms ({100 * floor_ms / med:.1f} %); output checksum {checksum} "
+                  f"({smi})", flush=True)
+        del eq, qt, out, carries
 for label, Q, S, geometries in lines:
     for m, n, k in geometries:
         engine = BandedEngine(k, device="cuda")
@@ -454,7 +530,8 @@ for label, Q, S, geometries in lines:
 """
 
 
-PARTS = ("bitpal", "cli", "banded", "generic", "stream", "myers_long", "peq", "pair", "myers")
+PARTS = ("bitpal", "cli", "banded", "generic", "stream", "myers_long", "peq", "pair", "myers",
+         "strips")
 
 
 def main(argv) -> int:

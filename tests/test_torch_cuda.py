@@ -4,6 +4,7 @@ Run on a machine with a GPU: ``python -m pytest -m cuda tests/test_torch_cuda.py
 Integer scores: kernel and plain version must be equal (tolerance 0).
 """
 
+import functools
 import statistics
 
 import numpy as np
@@ -158,6 +159,51 @@ def test_wavefront_at_its_tile_edges_matches_the_one_warp_strips(cuda, Q, S, m, 
     assert int((got - strips_launch(eq, q, wave=False, **kw)).abs().max()) == 0
     if eq.shape[1] * m <= 65 * 130:  # the plain version where it is affordable
         assert int((got - plain_on_codes(eq, q, **kw)).abs().max()) == 0
+
+
+# (Q, S, m, n) at the edges of the one-warp strips' block: a tile of 32
+# subjects whose four warps take the queries of its chunk. Q of 1, 5 and 21
+# (warps with no query; at 21 the last chunk holds one); S off a multiple
+# of 32 (the last tile of 1 subject at 33 and 4,097); a last strip of 1, 7
+# and 32 words; m of 1,025 and 2,049 (a query row staged past kQueryChunk
+# codes, the last batch of one column)
+STRIP_EDGES = [(1, 33, 97, 1025),    # 2 strips, the last of 1 word
+               (5, 77, 129, 1241),   # 2 strips, the last of 7
+               (21, 100, 64, 2048),  # 2 strips of 32
+               (5, 4097, 40, 1100),  # 2 strips, the last of 3
+               (3, 40, 1025, 1025),  # 2 chunks of the query row
+               (2, 50, 2049, 1025)]  # 3 chunks
+
+
+def strip_edge_inputs(Q, S, m, n):
+    """Query codes 0..4 with a fifth of them 5..255 (the tile's plane of
+    zeros), and the Eq words of skewed subjects, on the CPU."""
+    rng = np.random.default_rng(Q * S + m + n)
+    q = rng.integers(0, 5, size=(Q, m))
+    wide = rng.random(q.shape) < 0.2
+    q[wide] = rng.choice([5, 6, 7, 128, 255], size=int(wide.sum()))
+    eq = pack.pack_eq(torch.from_numpy(skewed(rng, (S, n))), 32)
+    return torch.from_numpy(q.astype(np.uint8)), eq
+
+
+@functools.lru_cache(maxsize=None)
+def strip_edge_plain(Q, S, m, n, is_global):
+    """Both plain versions on the CPU at factor 1, once a geometry and mode."""
+    q, eq = strip_edge_inputs(Q, S, m, n)
+    kw = dict(read_len=n, factor=1, is_global=is_global)
+    return plain_on_codes(eq, q, **kw), sg.myers_strip_ref(eq, q, **kw)
+
+
+@pytest.mark.parametrize("Q,S,m,n", STRIP_EDGES)
+@pytest.mark.parametrize("is_global,factor", MODES_AND_FACTORS)
+def test_one_warp_strips_at_their_tile_edges_match_plain(cuda, Q, S, m, n, is_global, factor):
+    q, eq = strip_edge_inputs(Q, S, m, n)
+    assert int((q == 4).sum()) > 0 and int(q.max()) >= 5
+    assert eq.shape[1] > build.load().reg_words
+    got = strips_launch(eq.to(cuda), q.to(cuda), wave=False, read_len=n, factor=factor,
+                        is_global=is_global).cpu()
+    for want in strip_edge_plain(Q, S, m, n, is_global):
+        assert int((got - factor * want).abs().max()) == 0
 
 
 def test_wavefront_at_the_genome_cells_words_and_columns(cuda):
